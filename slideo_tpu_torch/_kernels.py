@@ -1,0 +1,143 @@
+"""Build, load and count the hand-written CUDA kernels (csrc/*.cu).
+
+The counterpart of ``slideo_tpu/native.py``: every ``csrc/*.cu`` file is
+compiled by ``nvcc`` into ONE shared library with a plain C interface and
+loaded with ctypes. No PyTorch headers are included, so a build takes
+seconds. The library lands in ``_build/`` under a name carrying a hash of the
+sources and flags, so an edited source is rebuilt on first use and a stale
+library is never loaded. The build happens on the first call that needs a
+kernel, never at import: the CPU tests import every module.
+
+Each kernel's wrapper adds one to ``launches[name]`` right after it launched
+that kernel, and nowhere else, so a run can prove which kernels its main
+path went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+__all__ = [
+    "library", "launches", "reset_launches", "check_launch", "stream_of",
+    "require_cuda", "plain_or_raise",
+]
+
+_SRC_DIR = Path(__file__).resolve().parent / "csrc"
+_BUILD_DIR = Path(__file__).resolve().parent / "_build"
+_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signature of every exported launcher; each returns cudaGetLastError().
+_SIGNATURES = {
+    # img, out, h, w, threshold, stream
+    "slideo_fast_nms": (_P, _P, _I, _I, _F, _P),
+    # atlas, h, w, y0, x0, k, a_start, a_w, d_start, d_w, bins, out, stream
+    "slideo_orb_describe": (_P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P),
+    # query, q, desc, valid, n_slides, k_per_slide, best, arg, stream
+    "slideo_match_table": (_P, _I, _P, _P, _I, _I, _P, _P, _P),
+    # img, h, w, xs, ys, n, out, stream
+    "slideo_bilinear_sample": (_P, _I, _I, _P, _P, _I, _P, _P),
+}
+
+launches: dict[str, int] = {"fast": 0, "orb": 0, "table": 0, "warp": 0}
+
+_lib: ctypes.CDLL | None = None
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError(
+        "nvcc not found (neither on PATH nor at /usr/local/cuda/bin): the "
+        "CUDA kernels of slideo_tpu_torch are built from csrc/*.cu on first "
+        "use and need the CUDA toolkit"
+    )
+
+
+def _build() -> Path:
+    sources = sorted(_SRC_DIR.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(_FLAGS).encode())
+    for src in sources:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    target = _BUILD_DIR / f"libslideo_kernels_{digest.hexdigest()[:16]}.so"
+    if target.exists():
+        return target
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".so.tmp.{os.getpid()}")
+    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, sources)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    tmp.replace(target)  # atomic: a concurrent build never loads a partial file
+    return target
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built from csrc/ on first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(_build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """Handle of PyTorch's current stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_launch(rc: int, name: str) -> None:
+    """Raise if a launcher reported a CUDA error; else count the launch."""
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel '{name}' failed to launch: cudaError {rc}")
+    launches[name] += 1
+
+
+def require_cuda(t: torch.Tensor, what: str, dtype: torch.dtype, ndim: int) -> None:
+    """Validate a kernel operand: CUDA, dtype, rank, contiguity."""
+    if not t.is_cuda:
+        raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{what}: expected {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{what}: expected {ndim} dims, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: expected a contiguous tensor")
+
+
+def plain_or_raise(t: torch.Tensor) -> bool:
+    """Dispatch rule of every wrapper: True for a CPU tensor (take the plain
+    version), False for a CUDA tensor (launch the kernel); anything else
+    raises. There is no fallback from a CUDA tensor to the plain version."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type == "cuda":
+        return False
+    raise ValueError(f"unsupported device {t.device}: expected cpu or cuda")

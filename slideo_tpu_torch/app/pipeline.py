@@ -1,0 +1,346 @@
+"""End-to-end sync: slide deck + videos -> (video_ms -> page) timelines.
+
+Port of ``slideo_tpu/app/pipeline.py`` for the ORB engine on one device.
+The deck is indexed on the device once; sampled frames stream through in
+``VideoConfig.batch_size`` batches, a dedup pass on thumbnails drops frames
+that did not change (reference lib.rs:205-209), and the changed ones are
+matched. The output keeps the reference's contract: a sentinel no-match
+record at the video end (lib.rs:182-189), sorted by time, consecutive
+duplicates dropped (lib.rs:229-244). Rows are written through
+``slideo_tpu.app.db.Db``, the same store the JAX package uses.
+
+``match_video`` decodes the video (OpenCV, imported only there) and hands
+its samples to ``match_samples``, which takes any iterator of
+``(frame_idx, time_s, gray uint8 [H, W])`` — a machine without a video
+decoder can drive the engine through it.
+"""
+
+from __future__ import annotations
+
+import random
+import string
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Iterable, NamedTuple
+
+import numpy as np
+import torch
+
+from slideo_tpu.app.db import Db, PdfExtractedPagesDir
+from slideo_tpu.app.hashing import get_temp_path_key
+from slideo_tpu.app.progress import ComposedProgressReporter, ProgressReporter, null_reporter
+from slideo_tpu.config import SlideoConfig
+from slideo_tpu.io import pdf as pdf_io
+
+from ..models import orb_matcher
+from ..ops import image as image_ops
+
+__all__ = ["PdfPage", "Matching", "pdfs_to_images", "MatchingEngine", "sync"]
+
+
+@dataclass(frozen=True)
+class PdfPage:
+    """One rasterized page (reference: pdf_to_images.rs:18-31)."""
+
+    pdf_path: Path
+    pdf_hash: str
+    image_path: Path
+    page_nr: int  # 1-based
+
+    def get_path(self) -> Path:
+        return self.image_path
+
+
+@dataclass
+class Matching:
+    """Result record (reference: crates/matching/src/lib.rs:35-40)."""
+
+    video_ms: int
+    video_frame_idx: int
+    page: PdfPage | None
+
+
+class _Sample(NamedTuple):
+    frame_idx: int
+    time_s: float
+    gray: np.ndarray
+
+
+def pdfs_to_images(
+    pdfs: list[tuple[Path, str]],
+    db: Db,
+    reporter: ProgressReporter = null_reporter,
+) -> list[PdfPage]:
+    """Rasterize PDFs through the two-phase extraction cache
+    (reference: pdf_to_images.rs:33-111)."""
+    pages: list[PdfPage] = []
+    for pdf_path, pdf_hash in pdfs:
+        cached = db.get_pdf_extracted_pages_dir(pdf_hash)
+        if cached is not None and cached.finished and cached.dir.exists():
+            target = cached.dir
+        else:
+            if not pdf_io.have_poppler():
+                raise RuntimeError(
+                    "poppler (pdftocairo/pdfinfo) not found on PATH and no "
+                    f"finished extraction cached for {pdf_path}"
+                )
+            info = pdf_io.pdf_info(pdf_path)
+            rand = "".join(random.choices(string.ascii_lowercase, k=8))
+            target = get_temp_path_key("pdf", f"{pdf_hash}-{rand}")
+            target.mkdir(parents=True, exist_ok=True)
+            db.set_pdf_extracted_pages_dir(
+                PdfExtractedPagesDir(pdf_hash, target, finished=False)
+            )
+            pdf_io.pdftocairo(
+                pdf_path, target, progress=reporter, total_pages=info.pages
+            )
+            db.set_pdf_extracted_pages_dir(
+                PdfExtractedPagesDir(pdf_hash, target, finished=True)
+            )
+        for page in pdf_io._scan_pages(target):
+            pages.append(PdfPage(pdf_path, pdf_hash, page.image_path, page.page_nr))
+    return pages
+
+
+def _load_page_grays(pages: list[PdfPage]) -> np.ndarray:
+    """Decode the page images as grayscale, letterboxed (top-left anchored,
+    zero fill) into one [S, H, W] uint8 batch."""
+    import cv2
+
+    grays = []
+    for p in pages:
+        img = cv2.imread(str(p.get_path()), cv2.IMREAD_GRAYSCALE)
+        if img is None:
+            raise IOError(f"Could not read file '{p.get_path()}'")
+        grays.append(img)
+    h = max(g.shape[0] for g in grays)
+    w = max(g.shape[1] for g in grays)
+    batch = np.zeros((len(grays), h, w), np.uint8)
+    for i, g in enumerate(grays):
+        batch[i, : g.shape[0], : g.shape[1]] = g
+    return batch
+
+
+class MatchingEngine:
+    """Device-resident ORB matcher for one deck of slides."""
+
+    # Pages per upload during the index build (bounds device memory).
+    _BUILD_CHUNK = 32
+
+    def __init__(
+        self,
+        cfg: SlideoConfig,
+        pages: list[PdfPage],
+        device: torch.device | str = "cuda",
+        page_grays: np.ndarray | None = None,
+    ):
+        """Index the deck on ``device``.
+
+        page_grays: the pages as a letterboxed [S, H, W] uint8 array, in
+        page order; when None the page images are decoded from disk.
+        """
+        if cfg.engine != "orb":
+            raise NotImplementedError(f"engine {cfg.engine!r}: only 'orb' is ported")
+        # The resizes and similarities are f32 products: TF32 would move
+        # them off the reference's numbers.
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.cfg = cfg
+        self.pages = pages
+        self.device = torch.device(device)
+        grays = _load_page_grays(pages) if page_grays is None else page_grays
+        if grays.ndim != 3 or grays.shape[0] != len(pages) or grays.dtype != np.uint8:
+            raise ValueError(
+                f"page images: expected [{len(pages)}, H, W] uint8, got "
+                f"{grays.shape} {grays.dtype}"
+            )
+        self.slide_hw = (int(grays.shape[1]), int(grays.shape[2]))
+        chunks = (
+            grays[c:c + self._BUILD_CHUNK] for c in range(0, len(pages), self._BUILD_CHUNK)
+        )
+        self.index = orb_matcher.build_slide_index_from_chunks(chunks, cfg, self.device)
+
+    def _dedup(
+        self, frames: torch.Tensor, prev_small: torch.Tensor | None
+    ) -> tuple[torch.Tensor, np.ndarray]:
+        """Thumbnails of a [B, H, W] batch and which frames changed against
+        their predecessor (the first frame of a run always counts changed)."""
+        cfg = self.cfg
+        small_hw = image_ops.small_size(*frames.shape[1:], cfg.video.small_image_area)
+        smalls = image_ops.resize(frames, small_hw, area=True)
+        prev = torch.zeros_like(smalls[:1]) if prev_small is None else prev_small[None]
+        sims = image_ops.compute_similarity(
+            smalls, torch.cat([prev, smalls[:-1]]), channels=1
+        )
+        if prev_small is None:
+            sims[0] = 0.0
+        return smalls, (sims < cfg.video.dedup_similarity).cpu().numpy()
+
+    def match_samples(
+        self,
+        samples: Iterable[tuple[int, float, np.ndarray]],
+        total_ms: int,
+        total_frames: int,
+        reporter: ProgressReporter = null_reporter,
+        checkpoint=None,
+        resume_state: tuple[list, int] | None = None,
+        frames_total: int = 0,
+    ) -> list[Matching]:
+        """Match a stream of sampled frames; returns the cleaned timeline.
+
+        samples: (frame_idx, time_s, gray [H, W] uint8) in frame order.
+        total_ms / total_frames: the video's length (the sentinel record).
+        checkpoint: callable(rows, last_frame_idx), rows = (frame_idx,
+        video_ms, pdf_hash, page_idx 0-based), called after each batch with
+        the newly decided frames. resume_state: (rows, last_frame_idx) from
+        Db.load_partial_matchings; the caller's samples start after it.
+        frames_total: the expected number of samples, for progress reports.
+        """
+        cfg = self.cfg
+        results: list[Matching] = [
+            Matching(video_ms=total_ms, video_frame_idx=total_frames, page=None)
+        ]
+        last_deduped = -1
+        if resume_state is not None:
+            by_key = {(p.pdf_hash, p.page_nr): p for p in self.pages}
+            rows, last_deduped = resume_state
+            for frame_idx, video_ms, pdf_hash, page_idx in rows:
+                page = (
+                    by_key.get((pdf_hash, page_idx + 1))
+                    if pdf_hash is not None and page_idx is not None
+                    else None
+                )
+                results.append(Matching(video_ms, frame_idx, page))
+
+        bs = cfg.video.batch_size
+        batch: list[_Sample] = []
+        pending: list[tuple[_Sample, torch.Tensor]] = []  # changed, awaiting match
+        prev_small: torch.Tensor | None = None
+        processed = 0
+        ckpt_cursor = len(results)
+
+        def save_checkpoint():
+            nonlocal ckpt_cursor
+            if checkpoint is None:
+                return
+            # A frame is decided once deduped and, if it changed, matched.
+            frontier = pending[0][0].frame_idx - 1 if pending else last_deduped
+            new_rows = [
+                (
+                    m.video_frame_idx,
+                    m.video_ms,
+                    m.page.pdf_hash if m.page else None,
+                    (m.page.page_nr - 1) if m.page else None,
+                )
+                for m in results[ckpt_cursor:]
+                if m.video_frame_idx <= frontier
+            ]
+            ckpt_cursor = len(results)
+            checkpoint(new_rows, frontier)
+
+        def flush_matches(force: bool = False):
+            nonlocal pending
+            while pending and (len(pending) >= bs or force):
+                chunk, pending = pending[:bs], pending[bs:]
+                res = orb_matcher.match_frames(
+                    torch.stack([f for _, f in chunk]),
+                    [s.frame_idx for s, _ in chunk],
+                    self.index, self.slide_hw, cfg,
+                )
+                slides = res.slide.cpu().numpy()
+                for (s, _), slide in zip(chunk, slides):
+                    page = self.pages[slide] if slide >= 0 else None
+                    results.append(Matching(int(s.time_s * 1000), s.frame_idx, page))
+
+        def flush_dedup(force: bool = False):
+            nonlocal batch, prev_small, processed, last_deduped
+            if not batch or (len(batch) < bs and not force):
+                return
+            frames = torch.from_numpy(np.stack([b.gray for b in batch])).to(self.device)
+            smalls, changed = self._dedup(frames, prev_small)
+            prev_small = smalls[-1]
+            for i in np.nonzero(changed)[0]:
+                pending.append((batch[i], frames[i]))
+            processed += len(batch)
+            last_deduped = batch[-1].frame_idx
+            reporter(processed, max(frames_total, processed), "Processing frames...")
+            batch = []
+            flush_matches()
+            save_checkpoint()
+
+        for sample in samples:
+            batch.append(_Sample(*sample))
+            flush_dedup()
+        flush_dedup(force=True)
+        flush_matches(force=True)
+        save_checkpoint()
+        reporter(processed, max(frames_total, processed), "Finished!")
+
+        # Sort by time; drop consecutive duplicates (lib.rs:229-244).
+        results.sort(key=lambda m: m.video_ms)
+        cleaned: list[Matching] = []
+        for m in results:
+            if cleaned and cleaned[-1].page == m.page:
+                continue
+            cleaned.append(m)
+        return cleaned
+
+    def match_video(
+        self,
+        video_path: Path,
+        reporter: ProgressReporter = null_reporter,
+        checkpoint=None,
+        resume_state: tuple[list, int] | None = None,
+    ) -> list[Matching]:
+        """Decode and match one video (see ``match_samples``)."""
+        from slideo_tpu.io.video import open_video_info, sampled_frames
+
+        cfg = self.cfg
+        info = open_video_info(video_path)
+        start_after = resume_state[1] if resume_state is not None else -1
+        frames = sampled_frames(
+            video_path, cfg.video.interval_s, mode=cfg.video.decode_mode,
+            workers=cfg.video.decode_workers, start_after_frame=start_after,
+        )
+        return self.match_samples(
+            ((sf.frame_idx, sf.time_s, sf.gray) for sf in frames),
+            total_ms=int(info.total_time_s * 1000),
+            total_frames=info.total_frames,
+            reporter=reporter,
+            checkpoint=checkpoint,
+            resume_state=resume_state,
+            frames_total=info.frames_to_process(cfg.video.interval_s),
+        )
+
+
+def sync(
+    pages: list[PdfPage],
+    videos: list[tuple[Path, str]],
+    db: Db,
+    cfg: SlideoConfig,
+    reporter: ProgressReporter = null_reporter,
+    device: torch.device | str = "cuda",
+) -> None:
+    """Match every video against the deck and persist the timelines,
+    resuming a video from its checkpoint rows where it has them."""
+    engine = MatchingEngine(cfg, pages, device=device)
+    composed = ComposedProgressReporter(reporter)
+    nested = [composed.create_nested() for _ in videos]
+    for (video_path, video_hash), video_reporter in zip(videos, nested):
+        resume_state = db.load_partial_matchings(video_hash)
+
+        def checkpoint(rows, last_frame_idx, _vh=video_hash):
+            db.save_partial_matchings(_vh, rows, last_frame_idx)
+
+        matchings = engine.match_video(
+            video_path, video_reporter, checkpoint=checkpoint, resume_state=resume_state,
+        )
+        rows = [
+            (
+                m.video_ms,
+                m.page.pdf_hash if m.page else None,
+                (m.page.page_nr - 1) if m.page else None,
+            )
+            for m in matchings
+        ]
+        db.finalize_video_matchings(video_hash, rows)
