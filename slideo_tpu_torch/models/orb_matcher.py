@@ -195,16 +195,9 @@ def match_frames(
 ) -> FrameMatch:
     """Match a [B, H, W] batch frame by frame; fields come back [B].
 
-    Decks above ``cfg.match.screen_above_slides`` need stage-1 screening,
-    which is not ported yet: they raise instead of being matched another way.
+    Decks above ``cfg.match.screen_above_slides`` are refused by
+    ``hamming.match_table_frame`` (the screened path is not ported yet).
     """
-    n_slides = index.pts.shape[0]
-    if n_slides > cfg.match.screen_above_slides:
-        raise NotImplementedError(
-            f"{n_slides} slides > screen_above_slides="
-            f"{cfg.match.screen_above_slides}: the screened path is not "
-            "ported to slideo_tpu_torch yet"
-        )
     results = [
         match_frame(f, int(s), index, slide_hw, cfg) for f, s in zip(frames, frame_seeds)
     ]

@@ -16,19 +16,20 @@ __all__ = ["match_table_scores", "match_table_scores_plain"]
 
 _NEG = -(2**30)      # score of an invalid slot (hamming._NEG)
 _D_BITS = 256        # descriptor length the kernel packs into 64 words
+_CHUNK_SLIDES = 8    # slides per matmul of the plain version
 
 
 def match_table_scores_plain(
     query: torch.Tensor, desc: torch.Tensor, valid: torch.Tensor,
-    n_slides: int, k_per_slide: int, chunk_slides: int = 8,
+    n_slides: int, k_per_slide: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(best [Q, S] float32, arg [Q, S] int32) by chunks of slides: f32
     matmul (exact for +-1), invalid slots scored -2^30, first argmax."""
     q = query.shape[0]
     qf = query.to(torch.float32)
     best, arg = [], []
-    for s0 in range(0, n_slides, chunk_slides):
-        s1 = min(s0 + chunk_slides, n_slides)
+    for s0 in range(0, n_slides, _CHUNK_SLIDES):
+        s1 = min(s0 + _CHUNK_SLIDES, n_slides)
         rows = slice(s0 * k_per_slide, s1 * k_per_slide)
         scores = (qf @ desc[rows].to(torch.float32).T).reshape(q, s1 - s0, k_per_slide)
         scores = torch.where(

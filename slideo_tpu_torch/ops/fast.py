@@ -1,8 +1,8 @@
 """FAST-9/16 corner scores + 3x3 NMS: the plain PyTorch version.
 
 Port of ``slideo_tpu/ops/fast.py``. ``nms3x3(fast_scores(...))`` is the plain
-version of kernel K1 (csrc/fast.cu); ``score_map`` dispatches to K1 through
-``cuda_fast.fast_score_map``. The score is OpenCV's FAST_SCORE:
+version of kernel K1 (csrc/fast.cu), which ``cuda_fast.fast_score_map``
+launches. The score is OpenCV's FAST_SCORE:
 ``max(max_s min_{9-arc}(tap - c), -min_s max_{9-arc}(tap - c))`` with each
 ``tap - c`` rounded to bfloat16 (config.OrbConfig.atlas_bf16), zero unless
 ``> threshold``, and zero on the 3 px image ring.
@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["CIRCLE_OFFSETS", "fast_scores", "nms3x3", "score_map"]
+__all__ = ["CIRCLE_OFFSETS", "fast_scores", "nms3x3"]
 
 # Bresenham circle of radius 3, 16 points, clockwise from (dy=-3, dx=0).
 CIRCLE_OFFSETS: tuple[tuple[int, int], ...] = (
@@ -54,13 +54,3 @@ def nms3x3(score: torch.Tensor) -> torch.Tensor:
     """Keep a score iff it is the maximum of its 3x3 neighbourhood."""
     neigh = F.max_pool2d(score[None, None], 3, stride=1, padding=1)[0, 0]
     return torch.where(score >= neigh, score, 0.0)
-
-
-def score_map(img: torch.Tensor, threshold: int) -> torch.Tensor:
-    """NMS'd FAST score map of a [H, W] image or pyramid atlas: kernel K1 for
-    a CUDA tensor, the plain version for a CPU one. An atlas is scored in one
-    sweep: every consumer masks a per-level border of ``edge_threshold`` px,
-    wider than the 4 px that FAST + NMS reach across a level boundary."""
-    from .cuda_fast import fast_score_map
-
-    return fast_score_map(img, threshold)

@@ -19,7 +19,8 @@ import torch
 
 from slideo_tpu.config import OrbConfig
 
-from . import fast, top_k
+from . import top_k
+from .cuda_fast import fast_score_map
 from .cuda_orb import orb_describe, patch_origins
 
 __all__ = [
@@ -167,8 +168,10 @@ def _level_scales(cfg: OrbConfig) -> np.ndarray:
 
 def detect_pyramid(atlas: torch.Tensor, meta: PyramidMeta, cfg: OrbConfig) -> Keypoints:
     """FAST keypoints per level with geometric quotas, from ONE score sweep
-    over the whole atlas (kernel K1 on CUDA)."""
-    return detect_from_scores(fast.score_map(atlas, cfg.fast_threshold), meta, cfg)
+    over the whole atlas (kernel K1 on CUDA). Every consumer masks a
+    per-level border of ``edge_threshold`` px, wider than the 4 px that
+    FAST + NMS reach across a level boundary."""
+    return detect_from_scores(fast_score_map(atlas, cfg.fast_threshold), meta, cfg)
 
 
 def detect_from_scores(

@@ -70,18 +70,15 @@ def match_table(
     index: DescriptorIndex,
     n_slides: int,
     k_per_slide: int,
-    slide_ids: torch.Tensor | None = None,
 ) -> MatchTable:
     """The exact [Q, S] best-match table (with arg-best train slots)."""
     q, d_bits = query.shape
     best, arg = match_table_scores(query, index.desc, index.valid, n_slides, k_per_slide)
     svalid = index.valid.reshape(n_slides, k_per_slide).any(dim=1)
-    if slide_ids is None:
-        slide_ids = torch.arange(n_slides, dtype=torch.int32, device=query.device)
     return MatchTable(
         dist=(d_bits - best) * 0.5,
         train=arg,
-        slide_ids=slide_ids,
+        slide_ids=torch.arange(n_slides, dtype=torch.int32, device=query.device),
         valid=svalid[None, :].expand(q, n_slides),
     )
 

@@ -17,10 +17,10 @@ from .ransac import Similarity
 
 __all__ = ["warp_similarity"]
 
+_CHUNK = 2048   # sample points per tent-weight matmul of _bilinear_image
 
-def _bilinear_image(
-    img: torch.Tensor, x: torch.Tensor, y: torch.Tensor, chunk: int = 2048
-) -> torch.Tensor:
+
+def _bilinear_image(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Bilinear sample of a [H, W] image at [N] float coords; out-of-bounds
     points give 0. Tent-weight form (``value = rowsum((Ry @ img) * Cx)``) in
     chunks of points: the plain version of kernel K6."""
@@ -29,9 +29,9 @@ def _bilinear_image(
     grid_y = torch.arange(h, dtype=torch.float32, device=img.device)
     grid_x = torch.arange(w, dtype=torch.float32, device=img.device)
     vals = []
-    for i in range(0, x.shape[0], chunk):
-        yc = torch.clamp(y[i:i + chunk], 0.0, h - 1.0)
-        xc = torch.clamp(x[i:i + chunk], 0.0, w - 1.0)
+    for i in range(0, x.shape[0], _CHUNK):
+        yc = torch.clamp(y[i:i + _CHUNK], 0.0, h - 1.0)
+        xc = torch.clamp(x[i:i + _CHUNK], 0.0, w - 1.0)
         ry = torch.clamp(1.0 - torch.abs(yc[:, None] - grid_y), min=0.0)
         cx = torch.clamp(1.0 - torch.abs(xc[:, None] - grid_x), min=0.0)
         vals.append(((ry @ img) * cx).sum(dim=-1))
