@@ -15,16 +15,28 @@ Phases:
    unchanged).
 3. Each hand-written kernel against its plain PyTorch version on the card,
    at the shapes the match path gives it, with CUDA-event timings.
-4. The match path itself: a synthetic 64-slide 1080x1920 deck indexed by
+4. The exact-table path: a synthetic 64-slide 1080x1920 deck indexed by
    ``MatchingEngine``, 88 sampled 1080p frames (runs of warped slides,
    noise, blank) streamed through ``match_samples``, the timeline written
    to and read back from the SQLite store. It checks every run's slide and
-   that every kernel was launched by this run.
+   that every kernel of the path was launched by this run.
+5. The screened path (decks above ``screen_above_slides`` = 96 slides): a
+   500-slide 1080x1920 deck of near-duplicate families (100 pages, each
+   revealed line by line into 5 slides) and 80 sampled frames (runs of
+   adjacent family members, noise, blank). It holds K5 mode (b) bit-equal
+   to its plain version on 64 frames' stacked query prefixes and K5 mode
+   (a) over a candidate list bit-equal in both query buckets, checks the
+   timeline through the port's ``Db``, checks that the screened run
+   assigns every matched frame the slide the exact run (screening off)
+   assigns, and that the screened run launched ``screen`` and ``table``.
 
-Prints the kernel table as one JSON line, then the nvidia-smi line, then
-``{"ok": true, "device": {...}}`` as the last line. Any failed check raises
-and exits nonzero; without a CUDA device it exits nonzero before printing
-any result. Imports neither jax nor cv2.
+Prints the kernel table as one JSON line (each kernel's time, its plain
+version's, its bound on an H100 SXM from this run's shapes and, where one
+PyTorch call computes the same function, that call's time), then the
+nvidia-smi line, then ``{"ok": true, "device": {...}}`` as the last line.
+Any failed check raises and exits nonzero; without a CUDA device it exits
+nonzero before printing any result. Imports neither jax nor cv2, and
+nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -45,6 +57,13 @@ FRAME_HW = (1080, 1920)
 N_SLIDES = 64
 RUN_LEN = 4          # sampled frames per run (the dedup drops repeats)
 FPS, INTERVAL = 25, 5.0
+SCREENED_PAGES, PER_FAMILY = 100, 5   # 500 slides: 100 pages x 5 reveals
+
+# Peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W): the bound
+# of a kernel is the larger of its bytes over the memory rate and its
+# operations over the rate of their type.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"int8": 1979e12, "f32": 67e12}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -71,6 +90,21 @@ def cuda_ms(fns: dict, reps: int = 10) -> dict:
             end.synchronize()
             times[name].append(start.elapsed_time(end))
     return {name: float(np.median(t)) for name, t in times.items()}
+
+
+def bound(nbytes: float, ops: float, kind: str) -> dict:
+    """bound_ms and bound_by of a kernel that must move ``nbytes`` and do
+    ``ops`` operations of type ``kind``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def kernel_row(name: str, source: str, replaces: str, err: float, ms: dict,
+               cost: dict, library_ms: float | None = None) -> dict:
+    return dict(name=name, route="cuda", source=f"slideo_tpu_torch/csrc/{source}",
+                replaces=replaces, launches=0, max_abs_err=err, ms=ms["kernel"],
+                plain_ms=ms["plain"], **cost, library_ms=library_ms)
 
 
 def make_deck(rng: np.random.RandomState, n: int) -> np.ndarray:
@@ -174,9 +208,11 @@ def phase_kernels(torch, deck: np.ndarray, frame: np.ndarray, smi: str) -> list[
         "kernel": lambda: cuda_fast.fast_score_map(atlas, cfg.orb.fast_threshold),
         "plain": lambda: cuda_fast.fast_score_map_plain(atlas, cfg.orb.fast_threshold),
     })
-    rows.append(dict(name="fast_nms", route="cuda", source="slideo_tpu_torch/csrc/fast.cu",
-                     replaces="slideo_tpu/ops/pallas_fast.py:286", launches=0, max_abs_err=err,
-                     ms=ms["kernel"], plain_ms=ms["plain"]))
+    # Reads the bf16 atlas once, writes the f32 map; per pixel 16 circle
+    # differences, 2 x 16 x 9 arc min/max and 8 NMS compares.
+    n_px = atlas.numel()
+    rows.append(kernel_row("fast_nms", "fast.cu", "slideo_tpu/ops/pallas_fast.py:286", err, ms,
+                           bound(n_px * (2 + 4), n_px * (16 + 2 * 16 * 9 + 8), "f32")))
 
     # K3+K4: describe the 2048 keypoint slots of a slide.
     slide_atlas = features.build_pyramid(torch.from_numpy(deck[0]).to(dev).float(), cfg.orb)
@@ -204,10 +240,18 @@ def phase_kernels(torch, deck: np.ndarray, frame: np.ndarray, smi: str) -> list[
         "kernel": lambda: cuda_orb.orb_describe(slide_atlas, y0, x0),
         "plain": lambda: cuda_orb.orb_describe_plain(slide_atlas, y0, x0),
     })
-    rows.append(dict(name="orb_describe", route="cuda", source="slideo_tpu_torch/csrc/orb.cu",
-                     replaces="slideo_tpu/ops/pallas_orb.py:330", launches=0,
-                     max_abs_err=float((desc.float() - pdesc.float()).abs().max()),
-                     ms=ms["kernel"], plain_ms=ms["plain"]))
+    # Reads the atlas pixels the 63 x 63 patches cover, writes 256 bits and a
+    # bin per keypoint; per keypoint ~4 ops per patch pixel for the moments
+    # and 512 samples of 64 multiply-adds for the bits.
+    marks = torch.zeros((1, 1, slide_atlas.shape[0] + 62, slide_atlas.shape[1] + 62), device=dev)
+    marks[0, 0, (y0 + 62).clamp(0, marks.shape[2] - 1).long(),
+          (x0 + 62).clamp(0, marks.shape[3] - 1).long()] = 1.0
+    covered = int(torch.nn.functional.max_pool2d(marks, 63, stride=1).sum())
+    rows.append(kernel_row(
+        "orb_describe", "orb.cu", "slideo_tpu/ops/pallas_orb.py:330",
+        float((desc.float() - pdesc.float()).abs().max()), ms,
+        bound(covered * 2 + k * (256 + 4 + 8), k * (4 * 63 * 63 + 512 * 64 * 2), "f32"),
+    ))
 
     # K5: exact table, frame queries x 64 slides x 2048 slots, in both query
     # buckets of the match path (Q=768 and Q=max_keypoints=2048). The row
@@ -233,9 +277,16 @@ def phase_kernels(torch, deck: np.ndarray, frame: np.ndarray, smi: str) -> list[
         })
         print(f"[time] match_table Q={q}: kernel {k5_ms[q]['kernel']:.4f} ms, "
               f"plain {k5_ms[q]['plain']:.4f} ms ({smi})")
-    rows.append(dict(name="match_table", route="cuda", source="slideo_tpu_torch/csrc/table.cu",
-                     replaces="slideo_tpu/ops/pallas_table.py:143", launches=0,
-                     max_abs_err=k5_err, ms=k5_ms[768]["kernel"], plain_ms=k5_ms[768]["plain"]))
+    # Q=768: reads the index and the queries once, writes best + arg.
+    n_idx = n_slides * kps_per
+    rows.append(kernel_row(
+        "match_table", "table.cu", "slideo_tpu/ops/pallas_table.py:143", k5_err, k5_ms[768],
+        bound(n_idx * (256 + 1) + 768 * 256 + 768 * n_slides * 8,
+              2 * 768 * n_idx * 256, "int8"),
+    ))
+    for q in k5_ms:
+        b = bound(n_idx * (256 + 1) + q * 256 + q * n_slides * 8, 2 * q * n_idx * 256, "int8")
+        print(f"[bound] match_table Q={q}: {b['bound_ms']:.4f} ms ({b['bound_by']})")
 
     # K6: verification sampling, 10 candidates x (130 x 231) points.
     small = image.to_small_image(atlas[:FRAME_HW[0], :FRAME_HW[1]].float()).contiguous()
@@ -256,16 +307,37 @@ def phase_kernels(torch, deck: np.ndarray, frame: np.ndarray, smi: str) -> list[
     err = float((got - want).abs().max())
     print(f"[K6] image {tuple(small.shape)}, points {tuple(xs.shape)}: max_abs_err {err}")
     check(err <= 1e-3, f"K6 warp kernel differs from its plain version by {err} > 1e-3")
+    # The library yardstick: grid_sample (bilinear, zeros outside) on the
+    # same points in its normalised coordinates, made outside the timing.
+    img4 = small[None, None]
+    grid = torch.stack([xs * (2.0 / (ws - 1)) - 1.0, ys * (2.0 / (hs - 1)) - 1.0], dim=-1)[None]
+    lib = torch.nn.functional.grid_sample(img4, grid, mode="bilinear", padding_mode="zeros",
+                                          align_corners=True)[0, 0]
+    inb = (xs >= 0) & (xs <= ws - 1) & (ys >= 0) & (ys <= hs - 1)
+    print(f"[K6] grid_sample vs kernel on the {int(inb.sum())} points inside the image: "
+          f"max_abs_diff {float((lib - got)[inb].abs().max())} (outside, the kernel gives 0 "
+          "and grid_sample blends the border taps)")
     ms = cuda_ms({
         "kernel": lambda: cuda_warp.bilinear_sample(small, xs, ys),
         "plain": lambda: cuda_warp.bilinear_sample_plain(small, xs, ys),
+        "library": lambda: torch.nn.functional.grid_sample(
+            img4, grid, mode="bilinear", padding_mode="zeros", align_corners=True),
     })
-    rows.append(dict(name="bilinear_sample", route="cuda", source="slideo_tpu_torch/csrc/warp.cu",
-                     replaces="slideo_tpu/ops/pallas_warp.py:86", launches=0, max_abs_err=err,
-                     ms=ms["kernel"], plain_ms=ms["plain"]))
+    # Reads the thumbnail and the points once, writes one value per point;
+    # ~20 f32 operations per point (clips, tent weights, 4 multiply-adds).
+    n_pt = xs.numel()
+    rows.append(kernel_row("bilinear_sample", "warp.cu", "slideo_tpu/ops/pallas_warp.py:86",
+                           err, ms, bound(small.numel() * 4 + n_pt * 12, n_pt * 20, "f32"),
+                           library_ms=ms["library"]))
     for r in rows:
-        print(f"[time] {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms ({smi})")
+        print_row(r, smi)
     return rows
+
+
+def print_row(r: dict, smi: str) -> None:
+    lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+    print(f"[time] {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+          f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library {lib} ({smi})")
 
 
 def make_stream(rng: np.random.RandomState, deck: np.ndarray):
@@ -282,13 +354,27 @@ def make_stream(rng: np.random.RandomState, deck: np.ndarray):
 
 
 def phase_slice(torch, deck: np.ndarray, runs, seed: int, smi: str) -> dict[str, int]:
-    from slideo_tpu.app.db import Db
-    from slideo_tpu_torch import DEFAULT_CONFIG, _kernels
+    from slideo_tpu_torch import DEFAULT_CONFIG
+
+    out = drive_engine(torch, DEFAULT_CONFIG, deck, runs, seed, smi, "slice")
+    for name in ("fast", "orb", "table", "warp"):
+        check(out["launches"][name] > 0, f"kernel {name} was never launched by the match path")
+    return out["launches"]
+
+
+def drive_engine(torch, cfg, deck: np.ndarray, runs, seed: int, smi: str, tag: str) -> dict:
+    """Index ``deck`` with ``MatchingEngine`` and stream the runs' frames
+    through ``match_samples``, with every launch count set to 0 just before
+    and read just after; write the timeline through the port's ``Db``,
+    read it back and check it against the runs. Returns the launches, the
+    frame -> page rows of every matched frame (the engine's checkpoint
+    rows) and the engine's deck index."""
+    from slideo_tpu_torch import _kernels
+    from slideo_tpu_torch.app.db import Db
     from slideo_tpu_torch.app.pipeline import MatchingEngine, PdfPage
 
-    cfg = DEFAULT_CONFIG
-    pdf_hash = hashlib.sha256(f"chip-smoke-deck-{seed}".encode()).hexdigest()
-    video_hash = hashlib.sha256(f"chip-smoke-video-{seed}".encode()).hexdigest()
+    pdf_hash = hashlib.sha256(f"chip-smoke-deck-{tag}-{seed}".encode()).hexdigest()
+    video_hash = hashlib.sha256(f"chip-smoke-video-{tag}-{seed}".encode()).hexdigest()
     pages = [PdfPage(Path("deck.pdf"), pdf_hash, Path(f"p-{i + 1}.png"), i + 1) for i in range(len(deck))]
     samples, expected, idx = [], [], 0
     stride = int(FPS * INTERVAL)
@@ -299,6 +385,10 @@ def phase_slice(torch, deck: np.ndarray, runs, seed: int, smi: str) -> dict[str,
             idx += 1
     total_frames = idx * stride
     total_ms = total_frames * 1000 // FPS
+    matched: list[tuple[int, int | None]] = []
+
+    def checkpoint(rows, _last_frame_idx):
+        matched.extend((frame_idx, page) for frame_idx, _ms, _h, page in rows)
 
     _kernels.reset_launches()
     torch.cuda.synchronize()
@@ -308,13 +398,13 @@ def phase_slice(torch, deck: np.ndarray, runs, seed: int, smi: str) -> dict[str,
     t_index = time.perf_counter() - t0
     t0 = time.perf_counter()
     timeline = engine.match_samples(samples, total_ms=total_ms, total_frames=total_frames,
-                                    frames_total=len(samples))
+                                    checkpoint=checkpoint, frames_total=len(samples))
     torch.cuda.synchronize()
     t_match = time.perf_counter() - t0
     launches = dict(_kernels.launches)
-    print(f"[slice] index of {len(deck)} slides {FRAME_HW[0]}x{FRAME_HW[1]} built in {t_index:.3f} s ({smi})")
-    print(f"[slice] {len(samples)} sampled frames matched in {t_match:.3f} s: "
-          f"{len(samples) / t_match:.2f} frames/s ({smi}); kernel launches {launches}")
+    print(f"[{tag}] index of {len(deck)} slides {FRAME_HW[0]}x{FRAME_HW[1]} built in {t_index:.3f} s ({smi})")
+    print(f"[{tag}] {len(samples)} sampled frames ({len(matched)} changed and matched) in "
+          f"{t_match:.3f} s: {len(samples) / t_match:.2f} frames/s ({smi}); kernel launches {launches}")
 
     with tempfile.TemporaryDirectory() as td:
         os.environ["SLIDEO_DB_DIR"] = td
@@ -336,13 +426,130 @@ def phase_slice(torch, deck: np.ndarray, runs, seed: int, smi: str) -> dict[str,
         want.append((ms, page))
     want.append((total_ms, None))
     got = [(ms, page if h is not None else None) for ms, h, page in rows]
-    print(f"[slice] timeline ({len(got)} rows): {got}")
-    check(all(h in (pdf_hash, None) for _, h, _ in rows), "rows name a foreign pdf hash")
-    check(got == want, f"timeline differs from the stream's runs: want {want}")
-    check(rows[-1][1] is None and rows[-1][0] == total_ms, "the sentinel row is not last")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was never launched by the match path")
-    return launches
+    print(f"[{tag}] timeline ({len(got)} rows): {got}")
+    check(all(h in (pdf_hash, None) for _, h, _ in rows), f"{tag}: rows name a foreign pdf hash")
+    check(got == want, f"{tag}: timeline differs from the stream's runs: want {want}")
+    check(rows[-1][1] is None and rows[-1][0] == total_ms, f"{tag}: the sentinel row is not last")
+    return dict(launches=launches, matched=matched, index=engine.index)
+
+
+def make_reveal_deck(rng: np.random.RandomState) -> np.ndarray:
+    """[SCREENED_PAGES * PER_FAMILY, 1080, 1920] uint8 near-duplicate deck:
+    each ``make_deck`` page revealed line by line, slide j of a family
+    showing the rows above the j-th cut (white below), the last slide the
+    whole page. Adjacent family members differ in one band of text lines."""
+    pages = make_deck(rng, SCREENED_PAGES)
+    h = FRAME_HW[0]
+    top, bottom = 220, h - 90                     # make_deck's lines lie in between
+    cuts = [top + (bottom - top) * (j + 1) // PER_FAMILY for j in range(PER_FAMILY - 1)] + [h]
+    deck = np.repeat(pages, PER_FAMILY, axis=0)
+    for s in range(len(deck)):
+        deck[s, cuts[s % PER_FAMILY]:] = 255
+    return deck
+
+
+def make_screened_stream(rng: np.random.RandomState, deck: np.ndarray, n_families: int = 12):
+    """Runs of sampled frames across families: three adjacent members of
+    each family in reveal order, two frames each, with a noise and a blank
+    run after the 4th and 9th family."""
+    runs: list[tuple[int | None, list[np.ndarray]]] = []
+    families = rng.permutation(len(deck) // PER_FAMILY)[:n_families]
+    for i, fam in enumerate(families):
+        first = rng.randint(0, PER_FAMILY - 2)
+        for j in range(first, first + 3):
+            s = int(fam) * PER_FAMILY + j
+            base = warp(deck[s], rng)
+            runs.append((s, [with_noise(base, rng, 1.5) for _ in range(2)]))
+        if i in (3, 8):
+            runs.append((None, [rng.randint(0, 256, FRAME_HW).astype(np.uint8) for _ in range(2)]))
+            runs.append((None, [np.full(FRAME_HW, 128, np.uint8) for _ in range(2)]))
+    return runs
+
+
+def phase_screened(torch, seed: int, smi: str) -> tuple[dict, dict]:
+    """The screened path on a 500-slide deck; returns K5 (b)'s kernel row
+    and the screened run's launches."""
+    import dataclasses
+
+    from slideo_tpu_torch import DEFAULT_CONFIG
+    from slideo_tpu_torch.models import orb_matcher
+    from slideo_tpu_torch.ops import cuda_screen, cuda_table, features, hamming
+
+    cfg = DEFAULT_CONFIG
+    rng = np.random.RandomState(seed + 1)
+    t0 = time.perf_counter()
+    deck = make_reveal_deck(rng)
+    runs = make_screened_stream(rng, deck)
+    print(f"[screened] deck {deck.shape} and {sum(len(f) for _, f in runs)} frames made in "
+          f"{time.perf_counter() - t0:.2f} s (host)")
+    check(len(deck) > cfg.match.screen_above_slides, "the deck does not take the screened path")
+
+    # (c) + (e): the screened run through the engine.
+    screened = drive_engine(torch, cfg, deck, runs, seed, smi, "screened")
+    for name in ("screen", "table", "fast", "orb", "warp"):
+        check(screened["launches"][name] > 0, f"kernel {name} was never launched by the screened run")
+
+    # (d): the same frames with screening off (the exact table over 500 slides).
+    exact_cfg = dataclasses.replace(
+        cfg, match=dataclasses.replace(cfg.match, screen_above_slides=len(deck) + 1)
+    )
+    exact = drive_engine(torch, exact_cfg, deck, runs, seed, smi, "exact500")
+    check(exact["launches"]["screen"] == 0, "the exact run went through stage-1 screening")
+    diffs = [(a, b) for a, b in zip(screened["matched"], exact["matched"]) if a != b]
+    print(f"[screened] screened vs exact assignments: {len(screened['matched'])} frames, "
+          f"{len(diffs)} differences {diffs}")
+    check(len(screened["matched"]) == len(exact["matched"]) and not diffs,
+          "screened and exact assignments differ")
+
+    # (a): K5 (b) on 64 frames' stacked query prefixes against the index.
+    dev = torch.device("cuda")
+    index = screened["index"]
+    di = index.desc_index
+    n_slides, kps_per = index.pts.shape[0], index.pts.shape[1]
+    frames = [f for _, fs in runs for f in fs][:cfg.video.batch_size]
+    front = [orb_matcher._frame_features(torch.from_numpy(f).to(dev), cfg) for f in frames]
+    qdesc = torch.stack([
+        hamming.screen_queries(ft.desc, ft.score, ft.valid, cfg.match) for ft, _ in front
+    ])
+    prefixes = qdesc[..., :cuda_screen.SCREEN_BITS].reshape(-1, cuda_screen.SCREEN_BITS).contiguous()
+    best = cuda_screen.screen_scores(prefixes, di.desc, di.valid, n_slides, kps_per)
+    pbest = cuda_screen.screen_scores_plain(prefixes, di.desc, di.valid, n_slides, kps_per)
+    torch.cuda.synchronize()
+    same = torch.equal(best, pbest)
+    err = float((best - pbest).abs().max())
+    print(f"[K5b] prefixes {tuple(prefixes.shape)} x index {n_slides}x{kps_per}: bit-equal {same}")
+    check(same, "K5 (b) screening kernel is not bit-equal to its plain version")
+    ms = cuda_ms({
+        "kernel": lambda: cuda_screen.screen_scores(prefixes, di.desc, di.valid, n_slides, kps_per),
+        "plain": lambda: cuda_screen.screen_scores_plain(prefixes, di.desc, di.valid, n_slides, kps_per),
+    }, reps=5)
+    r, n_idx = prefixes.shape[0], n_slides * kps_per
+    row = kernel_row(
+        "screen_scores", "screen.cu", "slideo_tpu/ops/pallas_table.py:143", err, ms,
+        bound(n_idx * (cuda_screen.SCREEN_BITS + 1) + r * cuda_screen.SCREEN_BITS + r * n_slides * 4,
+              2 * r * n_idx * cuda_screen.SCREEN_BITS, "int8"),
+    )
+    print_row(row, smi)
+
+    # (b): K5 (a) over the first frame's candidate slides, both query buckets.
+    cand = hamming.screen_slides_batched(qdesc[:1], di, n_slides, kps_per, cfg.match)[0]
+    fmeta = features.pyramid_meta(*FRAME_HW, cfg.orb)
+    atlas = features.build_pyramid(torch.from_numpy(frames[0]).to(dev).float(), cfg.orb)
+    fkps = features.detect_pyramid(atlas, fmeta, cfg.orb)
+    for q in (768, cfg.orb.max_keypoints):
+        query = features.describe(atlas, fmeta, fkps, q, cfg.orb).desc.contiguous()
+        b1, a1 = cuda_table.match_table_scores(query, di.desc, di.valid, n_slides, kps_per, cand)
+        b2, a2 = cuda_table.match_table_scores_plain(query, di.desc, di.valid, n_slides, kps_per, cand)
+        torch.cuda.synchronize()
+        same = torch.equal(b1, b2) and torch.equal(a1, a2)
+        t = cuda_ms({
+            "kernel": lambda: cuda_table.match_table_scores(query, di.desc, di.valid, n_slides, kps_per, cand),
+            "plain": lambda: cuda_table.match_table_scores_plain(query, di.desc, di.valid, n_slides, kps_per, cand),
+        })
+        print(f"[K5] query {tuple(query.shape)} x candidates {cand.tolist()}: best+arg bit-equal {same}; "
+              f"kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms ({smi})")
+        check(same, f"K5 table kernel over a slide list at Q={q} is not bit-equal to its plain version")
+    return row, screened["launches"]
 
 
 def main() -> None:
@@ -362,10 +569,15 @@ def main() -> None:
           f"{time.perf_counter() - t0:.2f} s (host)")
     rows = phase_kernels(torch, deck, runs[0][1][0], smi)
     launches = phase_slice(torch, deck, runs, args.seed, smi)
+    del deck, runs
+    screen_row, screened_launches = phase_screened(torch, args.seed, smi)
+    rows.append(screen_row)
+    # Launches of both main-path runs: the exact-table path and the screened path.
     by_name = {"fast_nms": "fast", "orb_describe": "orb", "match_table": "table",
-               "bilinear_sample": "warp"}
+               "bilinear_sample": "warp", "screen_scores": "screen"}
     for r in rows:
-        r["launches"] = launches[by_name[r["name"]]]
+        name = by_name[r["name"]]
+        r["launches"] = launches[name] + screened_launches[name]
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,11 @@
 """slideo-tpu on PyTorch + CUDA: the ORB match path for one NVIDIA H100.
 
-The configuration is shared with the JAX package: ``slideo_tpu.config`` is
-framework-free (``slideo_tpu/__init__.py`` imports nothing else), so both
-implementations read every constant from one place. This package imports
-``torch`` and never ``jax``.
+A port of the JAX package ``slideo_tpu`` that stands on its own: it imports
+``torch`` and never ``jax``, and nothing of ``slideo_tpu``. It keeps its own
+copy of the configuration (``config.py``, the same fields and defaults).
 """
 
-from slideo_tpu.config import (  # noqa: F401
+from .config import (  # noqa: F401
     DEFAULT_CONFIG,
     MatchConfig,
     OrbConfig,

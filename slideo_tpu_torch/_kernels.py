@@ -1,9 +1,9 @@
 """Build, load and count the hand-written CUDA kernels (csrc/*.cu).
 
 The counterpart of ``slideo_tpu/native.py``: every ``csrc/*.cu`` file is
-compiled by ``nvcc`` into ONE shared library with a plain C interface and
-loaded with ctypes. No PyTorch headers are included, so a build takes
-seconds. The library lands in ``_build/`` under a name carrying a hash of the
+compiled by its own ``nvcc``, all in parallel, and linked into ONE shared
+library with a plain C interface, loaded with ctypes. No PyTorch headers
+are included, so a build takes seconds. The library lands in ``_build/`` under a name carrying a hash of the
 sources and flags, so an edited source is rebuilt on first use and a stale
 library is never loaded. The build happens on the first call that needs a
 kernel, never at import: the CPU tests import every module.
@@ -31,10 +31,8 @@ __all__ = [
 
 _SRC_DIR = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent / "_build"
-_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of every exported launcher; each returns cudaGetLastError().
@@ -43,13 +41,15 @@ _SIGNATURES = {
     "slideo_fast_nms": (_P, _P, _I, _I, _F, _P),
     # atlas, h, w, y0, x0, k, a_start, a_w, d_start, d_w, bins, out, stream
     "slideo_orb_describe": (_P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P),
-    # query, q, desc, valid, n_slides, k_per_slide, best, arg, stream
-    "slideo_match_table": (_P, _I, _P, _P, _I, _I, _P, _P, _P),
+    # query, q, desc, valid, n_cols, k_per_slide, slide_list, best, arg, stream
+    "slideo_match_table": (_P, _I, _P, _P, _I, _I, _P, _P, _P, _P),
+    # query, q, desc, valid, n_slides, k_per_slide, best, stream
+    "slideo_screen": (_P, _I, _P, _P, _I, _I, _P, _P),
     # img, h, w, xs, ys, n, out, stream
     "slideo_bilinear_sample": (_P, _I, _I, _P, _P, _I, _P, _P),
 }
 
-launches: dict[str, int] = {"fast": 0, "orb": 0, "table": 0, "warp": 0}
+launches: dict[str, int] = {"fast": 0, "orb": 0, "table": 0, "screen": 0, "warp": 0}
 
 _lib: ctypes.CDLL | None = None
 
@@ -73,6 +73,21 @@ def _nvcc() -> str:
     )
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands in parallel; raise with the output of any that fails."""
+    procs = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for cmd in cmds
+    ]
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def _build() -> Path:
     sources = sorted(_SRC_DIR.glob("*.cu"))
     digest = hashlib.sha256(" ".join(_FLAGS).encode())
@@ -83,14 +98,15 @@ def _build() -> Path:
     if target.exists():
         return target
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+    nvcc = _nvcc()
+    # One nvcc per source, all at once, then one link.
+    objs = [_BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+    _run_all([[nvcc, *_FLAGS, "-c", "-o", str(o), str(src)] for src, o in zip(sources, objs)])
     tmp = target.with_suffix(f".so.tmp.{os.getpid()}")
-    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
+    _run_all([[nvcc, *_ARCH, "-shared", "-o", str(tmp), *map(str, objs)]])
+    for o in objs:
+        o.unlink()
     tmp.replace(target)  # atomic: a concurrent build never loads a partial file
     return target
 

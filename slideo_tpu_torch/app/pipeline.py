@@ -6,8 +6,8 @@ The deck is indexed on the device once; sampled frames stream through in
 that did not change (reference lib.rs:205-209), and the changed ones are
 matched. The output keeps the reference's contract: a sentinel no-match
 record at the video end (lib.rs:182-189), sorted by time, consecutive
-duplicates dropped (lib.rs:229-244). Rows are written through
-``slideo_tpu.app.db.Db``, the same store the JAX package uses.
+duplicates dropped (lib.rs:229-244). Rows are written through ``app.db.Db``,
+whose schema and file are the JAX package's.
 
 ``match_video`` decodes the video (OpenCV, imported only there) and hands
 its samples to ``match_samples``, which takes any iterator of
@@ -26,14 +26,13 @@ from typing import Iterable, NamedTuple
 import numpy as np
 import torch
 
-from slideo_tpu.app.db import Db, PdfExtractedPagesDir
-from slideo_tpu.app.hashing import get_temp_path_key
-from slideo_tpu.app.progress import ComposedProgressReporter, ProgressReporter, null_reporter
-from slideo_tpu.config import SlideoConfig
-from slideo_tpu.io import pdf as pdf_io
-
+from ..config import SlideoConfig
+from ..io import pdf as pdf_io
 from ..models import orb_matcher
 from ..ops import image as image_ops
+from .db import Db, PdfExtractedPagesDir
+from .hashing import get_temp_path_key
+from .progress import ComposedProgressReporter, ProgressReporter, null_reporter
 
 __all__ = ["PdfPage", "Matching", "pdfs_to_images", "MatchingEngine", "sync"]
 
@@ -293,14 +292,14 @@ class MatchingEngine:
         resume_state: tuple[list, int] | None = None,
     ) -> list[Matching]:
         """Decode and match one video (see ``match_samples``)."""
-        from slideo_tpu.io.video import open_video_info, sampled_frames
+        from ..io.video import open_video_info, sampled_frames
 
         cfg = self.cfg
         info = open_video_info(video_path)
         start_after = resume_state[1] if resume_state is not None else -1
         frames = sampled_frames(
             video_path, cfg.video.interval_s, mode=cfg.video.decode_mode,
-            workers=cfg.video.decode_workers, start_after_frame=start_after,
+            start_after_frame=start_after,
         )
         return self.match_samples(
             ((sf.frame_idx, sf.time_s, sf.gray) for sf in frames),

@@ -2,18 +2,23 @@
 //
 // Replaces slideo_tpu/ops/pallas_table.py:match_table_scores_pallas in its
 // int8 / transposed / with-argmax mode (_kernel_t), the exact match table of
-// decks up to screen_above_slides. Contract, bit-equal to
-// ops/hamming.match_table:
-//   score[q, s, k] = valid[s*K + k] ? <query[q], desc[s*K + k]> : -2^30
-//   best[q, s]     = max_k score   (as float32; exact, |score| <= 2^30)
-//   arg[q, s]      = the FIRST k attaining it (XLA's argmax; Mosaic's is last)
+// decks up to screen_above_slides, and stage 2 of screened decks over a
+// frame's candidate slides. Contract, bit-equal to ops/hamming.match_table:
+//   slide(c)       = slide_list ? slide_list[c] : c     (column c of the table)
+//   score[q, c, k] = valid[s*K + k] ? <query[q], desc[s*K + k]> : -2^30,
+//                    s = slide(c)
+//   best[q, c]     = max_k score   (as float32; exact, |score| <= 2^30)
+//   arg[q, c]      = the FIRST k attaining it (XLA's argmax; Mosaic's is last)
+// The slide list replaces the JAX package's sub-index copy
+// (hamming.sub_index_for_slides): the kernel reads the candidate slides'
+// rows in place.
 // Descriptors are +-1 int8 and invalid query rows are all zero, so a dot is
 // an exact small integer. XOR+popcount on packed bits is not used: packed
 // bits cannot represent the zero rows.
 //
 // What bounds it on the card: 2*Q*S*K*256 int8 operations (25.8 G MAC at
 // Q=768, S=64, K=2048) against ~S*K*256 bytes of index — compute-bound.
-// Design: one block per (64-query tile, slide). The query tile stays in
+// Design: one block per (64-query tile, table column). The query tile stays in
 // shared memory; the slide's descriptors stream through shared memory 64
 // rows at a time. Each of the 256 threads owns a 4 x 4 block of (query,
 // slot) dot products computed with __dp4a on packed int8 words, folds them
@@ -50,14 +55,15 @@ __device__ __forceinline__ void load_rows(int (*dst)[LD], const int* __restrict_
 __global__ void __launch_bounds__(256)
 match_table_kernel(const int* __restrict__ query, int nq,
                    const int* __restrict__ desc, const uint8_t* __restrict__ valid,
-                   int n_slides, int k_per_slide,
+                   int n_cols, int k_per_slide, const int* __restrict__ slide_list,
                    float* __restrict__ best_out, int* __restrict__ arg_out) {
   __shared__ int qs[QT][LD];
   __shared__ int ds[KT][LD];
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * 16 + tx;
   const int q0 = blockIdx.x * QT;
-  const int slide = blockIdx.y;
+  const int col = blockIdx.y;
+  const int slide = slide_list ? slide_list[col] : col;
   const int64_t row0 = (int64_t)slide * k_per_slide;
 
   load_rows(qs, query + (int64_t)q0 * WORDS, nq - q0, tid);
@@ -115,8 +121,8 @@ match_table_kernel(const int* __restrict__ query, int nq,
     for (int i = 0; i < 4; ++i) {
       const int q = q0 + ty + 16 * i;
       if (q < nq) {
-        best_out[(int64_t)q * n_slides + slide] = (float)best[i];
-        arg_out[(int64_t)q * n_slides + slide] = arg[i];
+        best_out[(int64_t)q * n_cols + col] = (float)best[i];
+        arg_out[(int64_t)q * n_cols + col] = arg[i];
       }
     }
   }
@@ -124,15 +130,17 @@ match_table_kernel(const int* __restrict__ query, int nq,
 
 }  // namespace
 
+// slide_list: n_cols int32 slide ids, or null for columns 0..n_cols-1.
 extern "C" int slideo_match_table(const void* query, int nq, const void* desc,
-                                  const void* valid, int n_slides,
-                                  int k_per_slide, void* best, void* arg,
-                                  void* stream) {
+                                  const void* valid, int n_cols,
+                                  int k_per_slide, const void* slide_list,
+                                  void* best, void* arg, void* stream) {
   dim3 block(16, 16);
-  dim3 grid((nq + QT - 1) / QT, n_slides);
+  dim3 grid((nq + QT - 1) / QT, n_cols);
   match_table_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(query), nq, static_cast<const int*>(desc),
-      static_cast<const uint8_t*>(valid), n_slides, k_per_slide,
-      static_cast<float*>(best), static_cast<int*>(arg));
+      static_cast<const uint8_t*>(valid), n_cols, k_per_slide,
+      static_cast<const int*>(slide_list), static_cast<float*>(best),
+      static_cast<int*>(arg));
   return static_cast<int>(cudaGetLastError());
 }

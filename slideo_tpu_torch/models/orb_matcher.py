@@ -1,12 +1,14 @@
 """The ORB frame-vs-slides matcher: features -> exact table -> cascade.
 
-Port of ``slideo_tpu/models/orb_matcher.py`` for decks of at most
-``MatchConfig.screen_above_slides`` slides (the exact table; reference
-lib.rs:249-414):
+Port of ``slideo_tpu/models/orb_matcher.py`` (reference lib.rs:249-414):
 
     features -> exact Hamming table -> 5% ratio filter -> group by slide
     -> top-40 by count -> RANSAC -> top-10 by inliers, rating > 50 and
     rating / best > 0.2 -> warp + L2 similarity > 0.5 -> winner.
+
+Decks above ``MatchConfig.screen_above_slides`` slides first screen the
+slides in one stage-1 sweep per batch, and the exact table then covers each
+frame's 16 candidate slides (``_match_frames_screened_batch``).
 
 A frame that matches nothing gets slide -1. The JAX package picks the
 frame's query bucket with ``lax.switch`` on device; here the host reads the
@@ -20,7 +22,7 @@ from typing import Iterable, NamedTuple
 import numpy as np
 import torch
 
-from slideo_tpu.config import SlideoConfig
+from ..config import SlideoConfig
 
 from ..ops import features as features_ops
 from ..ops import hamming, image, ransac, select, top_k, verify
@@ -154,6 +156,42 @@ def cascade_from_table(
     )
 
 
+def _frame_features(frame: torch.Tensor, cfg: SlideoConfig) -> tuple[Features, torch.Tensor]:
+    """The frame's features at its query bucket and its verification
+    thumbnail: pyramid, detect, describe, thumbnail of atlas level 0 (the
+    frame's pixels)."""
+    h, w = frame.shape
+    meta = features_ops.pyramid_meta(h, w, cfg.orb)
+    atlas = features_ops.build_pyramid(frame.to(torch.float32), cfg.orb)
+    kps = features_ops.detect_pyramid(atlas, meta, cfg.orb)
+    count = int(kps.valid.sum())
+    q = next(b for b in _query_buckets(cfg) if b >= count or b == cfg.orb.max_keypoints)
+    feats = features_ops.describe(atlas, meta, kps, q, cfg.orb)
+    frame_small = image.to_small_image(
+        atlas[:h, :w].to(torch.float32), cfg.video.small_image_area
+    )
+    return feats, frame_small
+
+
+def _cascade(
+    frame_small: torch.Tensor,
+    frame_hw: tuple[int, int],
+    frame_seed: int,
+    feats: Features,
+    table: hamming.MatchTable,
+    index: SlideIndex,
+    slide_hw: tuple[int, int],
+    cfg: SlideoConfig,
+) -> FrameMatch:
+    """``cascade_from_table`` with the engine's RANSAC draws for the
+    table's min(top_slides, columns) candidates."""
+    n_cand = min(cfg.match.top_slides, table.dist.shape[1])
+    u = ransac.uniform_draws(n_cand, cfg.match, frame_seed, feats.desc.device)
+    return cascade_from_table(
+        frame_small, frame_hw, u, feats, table, index.pts, index.smalls, slide_hw, cfg
+    )
+
+
 def match_frame(
     frame: torch.Tensor,
     frame_seed: int,
@@ -162,28 +200,48 @@ def match_frame(
     cfg: SlideoConfig,
 ) -> FrameMatch:
     """Match one [H, W] grayscale frame against the deck; ``frame_seed``
-    (the frame index) seeds the frame's RANSAC draws."""
-    h, w = frame.shape
-    meta = features_ops.pyramid_meta(h, w, cfg.orb)
-    atlas = features_ops.build_pyramid(frame.to(torch.float32), cfg.orb)
-    kps = features_ops.detect_pyramid(atlas, meta, cfg.orb)
+    (the frame index) seeds the frame's RANSAC draws. A screened deck gets
+    the same stage-1 candidates as in ``match_frames``."""
     n_slides, k_per_slide = index.pts.shape[0], index.pts.shape[1]
-    count = int(kps.valid.sum())
-    q = next(b for b in _query_buckets(cfg) if b >= count or b == cfg.orb.max_keypoints)
-    feats = features_ops.describe(atlas, meta, kps, q, cfg.orb)
+    feats, frame_small = _frame_features(frame, cfg)
     table = hamming.match_table_frame(
-        feats.desc, index.desc_index, n_slides, k_per_slide, cfg.match
+        feats.desc, feats.score, feats.valid, index.desc_index, n_slides,
+        k_per_slide, cfg.match,
     )
-    # Level 0 of the atlas holds the frame's pixels; verification reads its
-    # area thumbnail.
-    frame_small = image.to_small_image(
-        atlas[:h, :w].to(torch.float32), cfg.video.small_image_area
+    return _cascade(
+        frame_small, tuple(frame.shape), frame_seed, feats, table, index, slide_hw, cfg
     )
-    n_cand = min(cfg.match.top_slides, n_slides)
-    u = ransac.uniform_draws(n_cand, cfg.match, frame_seed, frame.device)
-    return cascade_from_table(
-        frame_small, (h, w), u, feats, table, index.pts, index.smalls, slide_hw, cfg
+
+
+def _match_frames_screened_batch(
+    frames: torch.Tensor,
+    frame_seeds: list[int],
+    index: SlideIndex,
+    slide_hw: tuple[int, int],
+    cfg: SlideoConfig,
+) -> FrameMatch:
+    """Screened-deck batch path (``orb_matcher.py:349-435``): per-frame
+    features -> ONE stage-1 sweep over the index for all frames'
+    strongest queries -> per frame, the exact table over its candidate
+    slides and the cascade."""
+    n_slides, k_per_slide = index.pts.shape[0], index.pts.shape[1]
+    front = [_frame_features(f, cfg) for f in frames]
+    qdesc = torch.stack([
+        hamming.screen_queries(ft.desc, ft.score, ft.valid, cfg.match) for ft, _ in front
+    ])
+    cand = hamming.screen_slides_batched(
+        qdesc, index.desc_index, n_slides, k_per_slide, cfg.match
     )
+    results = []
+    for (feats, frame_small), cand_i, seed in zip(front, cand, frame_seeds):
+        table = hamming.match_table(
+            feats.desc, index.desc_index, n_slides, k_per_slide, slide_ids=cand_i
+        )
+        results.append(_cascade(
+            frame_small, tuple(frames.shape[1:]), int(seed), feats, table, index,
+            slide_hw, cfg,
+        ))
+    return FrameMatch(*(torch.stack(field) for field in zip(*results)))
 
 
 def match_frames(
@@ -193,11 +251,11 @@ def match_frames(
     slide_hw: tuple[int, int],
     cfg: SlideoConfig,
 ) -> FrameMatch:
-    """Match a [B, H, W] batch frame by frame; fields come back [B].
-
-    Decks above ``cfg.match.screen_above_slides`` are refused by
-    ``hamming.match_table_frame`` (the screened path is not ported yet).
-    """
+    """Match a [B, H, W] batch; fields come back [B]. Decks above
+    ``cfg.match.screen_above_slides`` take the screened batch path, the
+    rest run frame by frame over the exact table."""
+    if index.pts.shape[0] > cfg.match.screen_above_slides:
+        return _match_frames_screened_batch(frames, frame_seeds, index, slide_hw, cfg)
     results = [
         match_frame(f, int(s), index, slide_hw, cfg) for f, s in zip(frames, frame_seeds)
     ]

@@ -21,10 +21,16 @@ _CHUNK_SLIDES = 8    # slides per matmul of the plain version
 
 def match_table_scores_plain(
     query: torch.Tensor, desc: torch.Tensor, valid: torch.Tensor,
-    n_slides: int, k_per_slide: int,
+    n_slides: int, k_per_slide: int, slide_ids: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(best [Q, S] float32, arg [Q, S] int32) by chunks of slides: f32
+    """(best [Q, C] float32, arg [Q, C] int32) by chunks of slides: f32
     matmul (exact for +-1), invalid slots scored -2^30, first argmax."""
+    if slide_ids is not None:
+        rows = (
+            slide_ids.long()[:, None] * k_per_slide
+            + torch.arange(k_per_slide, device=desc.device)
+        ).reshape(-1)
+        desc, valid, n_slides = desc[rows], valid[rows], slide_ids.shape[0]
     q = query.shape[0]
     qf = query.to(torch.float32)
     best, arg = [], []
@@ -42,16 +48,17 @@ def match_table_scores_plain(
 
 def match_table_scores(
     query: torch.Tensor, desc: torch.Tensor, valid: torch.Tensor,
-    n_slides: int, k_per_slide: int,
+    n_slides: int, k_per_slide: int, slide_ids: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Best score and first arg-best slot of every (query, slide).
+    """Best score and first arg-best slot of every (query, table column).
 
     query [Q, 256] int8 (+-1, invalid rows 0); desc [S*K, 256] int8 (+-1,
-    invalid slots 0); valid [S*K] bool. Returns (best [Q, S] float32,
-    arg [Q, S] int32).
+    invalid slots 0); valid [S*K] bool. The table's columns are the slides
+    ``slide_ids`` ([C] int32) of the index, or all S slides when it is None.
+    Returns (best [Q, C] float32, arg [Q, C] int32).
     """
     if _kernels.plain_or_raise(query):
-        return match_table_scores_plain(query, desc, valid, n_slides, k_per_slide)
+        return match_table_scores_plain(query, desc, valid, n_slides, k_per_slide, slide_ids)
     _kernels.require_cuda(query, "match_table query", torch.int8, 2)
     _kernels.require_cuda(desc, "match_table desc", torch.int8, 2)
     _kernels.require_cuda(valid, "match_table valid", torch.bool, 1)
@@ -62,13 +69,20 @@ def match_table_scores(
             f"match_table: query {tuple(query.shape)}, desc {tuple(desc.shape)}, "
             f"valid {tuple(valid.shape)} do not fit {n_slides} x {k_per_slide} x {_D_BITS}"
         )
-    best = torch.empty((q, n_slides), dtype=torch.float32, device=query.device)
-    arg = torch.empty((q, n_slides), dtype=torch.int32, device=query.device)
-    if q == 0 or n_slides == 0:
+    n_cols, list_ptr = n_slides, None
+    if slide_ids is not None:
+        _kernels.require_cuda(slide_ids, "match_table slide_ids", torch.int32, 1)
+        if not bool(((slide_ids >= 0) & (slide_ids < n_slides)).all()):
+            raise ValueError(f"match_table: slide_ids outside [0, {n_slides})")
+        n_cols, list_ptr = slide_ids.shape[0], slide_ids.data_ptr()
+    best = torch.empty((q, n_cols), dtype=torch.float32, device=query.device)
+    arg = torch.empty((q, n_cols), dtype=torch.int32, device=query.device)
+    if q == 0 or n_cols == 0:
         return best, arg
     rc = _kernels.library().slideo_match_table(
-        query.data_ptr(), q, desc.data_ptr(), valid.data_ptr(), n_slides,
-        k_per_slide, best.data_ptr(), arg.data_ptr(), _kernels.stream_of(query),
+        query.data_ptr(), q, desc.data_ptr(), valid.data_ptr(), n_cols,
+        k_per_slide, list_ptr, best.data_ptr(), arg.data_ptr(),
+        _kernels.stream_of(query),
     )
     _kernels.check_launch(rc, "table")
     return best, arg

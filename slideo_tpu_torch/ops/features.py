@@ -17,7 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from slideo_tpu.config import OrbConfig
+from ..config import OrbConfig
 
 from . import top_k
 from .cuda_fast import fast_score_map

@@ -1,9 +1,13 @@
-"""Exact Hamming matching of +-1 descriptors: index and [Q, S] best table.
+"""Exact Hamming matching of +-1 descriptors: index, screening, best table.
 
-Port of ``slideo_tpu/ops/hamming.py`` (exact path). For +-1 vectors
+Port of ``slideo_tpu/ops/hamming.py``. For +-1 vectors
 hamming = (256 - <q, d>) / 2, so the table is a max/argmax of dot products
 per (query, slide): kernel K5 (csrc/table.cu) on CUDA, the chunked matmul of
-``hamming.py:307-358`` on the CPU. Both are bit-equal to the JAX table.
+``hamming.py:307-358`` on the CPU. Decks above
+``MatchConfig.screen_above_slides`` first go through stage-1 screening
+(``screen_slides_batched``, kernel K5 mode (b), csrc/screen.cu), and the
+exact table then covers each frame's candidate slides only. Everything here
+is bit-equal to the JAX package.
 """
 
 from __future__ import annotations
@@ -12,8 +16,9 @@ from typing import NamedTuple
 
 import torch
 
-from slideo_tpu.config import MatchConfig
-
+from ..config import MatchConfig
+from . import top_k
+from .cuda_screen import SCREEN_BITS, screen_scores
 from .cuda_table import match_table_scores
 
 __all__ = [
@@ -22,6 +27,8 @@ __all__ = [
     "build_index",
     "match_table",
     "match_table_frame",
+    "screen_queries",
+    "screen_slides_batched",
 ]
 
 
@@ -30,8 +37,8 @@ class DescriptorIndex(NamedTuple):
 
     desc [N, D] int8 (+-1; zeros on invalid slots), N = n_slides * K;
     slide_ids / train_ids [N] int32; valid [N] bool. ``desc_t`` and
-    ``screen_desc`` are the TPU kernels' layouts; the CUDA table kernel
-    reads ``desc`` row-major, so the port leaves both None.
+    ``screen_desc`` are the TPU kernels' layouts; the CUDA table and
+    screening kernels read ``desc`` row-major, so the port leaves both None.
     """
 
     desc: torch.Tensor
@@ -70,33 +77,105 @@ def match_table(
     index: DescriptorIndex,
     n_slides: int,
     k_per_slide: int,
+    slide_ids: torch.Tensor | None = None,
 ) -> MatchTable:
-    """The exact [Q, S] best-match table (with arg-best train slots)."""
+    """The exact best-match table (with arg-best train slots) over all
+    ``n_slides`` slides of the index, or over the slides ``slide_ids`` ([C]
+    int32). Unlike the JAX function, which takes a sub-index copied for
+    those slides, the port reads their rows in place."""
     q, d_bits = query.shape
-    best, arg = match_table_scores(query, index.desc, index.valid, n_slides, k_per_slide)
+    best, arg = match_table_scores(
+        query, index.desc, index.valid, n_slides, k_per_slide, slide_ids
+    )
     svalid = index.valid.reshape(n_slides, k_per_slide).any(dim=1)
+    if slide_ids is None:
+        slide_ids = torch.arange(n_slides, dtype=torch.int32, device=query.device)
+    else:
+        svalid = svalid[slide_ids.long()]
     return MatchTable(
         dist=(d_bits - best) * 0.5,
         train=arg,
-        slide_ids=torch.arange(n_slides, dtype=torch.int32, device=query.device),
-        valid=svalid[None, :].expand(q, n_slides),
+        slide_ids=slide_ids,
+        valid=svalid[None, :].expand(q, slide_ids.shape[0]),
     )
+
+
+def screen_queries(
+    desc: torch.Tensor, score: torch.Tensor, valid: torch.Tensor, cfg: MatchConfig
+) -> torch.Tensor:
+    """A frame's ``cfg.screen_queries`` strongest descriptor rows [Qs, D]:
+    stable top-k of ``where(valid, score, -1)``, lowest index first on ties
+    (``orb_matcher.py:395-397``). Invalid rows are all zero and may be among
+    them, unmasked, as on the TPU; a frame with fewer rows is padded with
+    zero rows, as the JAX package pads its features to max_keypoints."""
+    n = cfg.screen_queries
+    pad = n - desc.shape[0]
+    key = torch.where(valid, score, -1.0)
+    if pad > 0:
+        desc = torch.cat([desc, desc.new_zeros((pad, desc.shape[1]))])
+        key = torch.cat([key, key.new_full((pad,), -1.0)])
+    return desc[top_k(key, n)[1]]
+
+
+def _screen_votes(best: torch.Tensor) -> torch.Tensor:
+    """[..., Qs, S] stage-1 scores -> [..., S] float32 votes (``votes_of``,
+    ``hamming.py:539-545``): a query keeps every slide within 5% + 1 bit of
+    its best prefix distance, in float32 as the JAX package computes it."""
+    dist = (SCREEN_BITS - best.to(torch.float32)) * 0.5
+    bestd = dist.amin(dim=-1, keepdim=True)
+    keep = dist <= bestd * 1.05 + 1.0
+    return keep.sum(dim=-2).to(torch.float32)
+
+
+def screen_slides_batched(
+    qdesc: torch.Tensor,
+    index: DescriptorIndex,
+    n_slides: int,
+    k_per_slide: int,
+    cfg: MatchConfig,
+) -> torch.Tensor:
+    """Stage-1 candidate slides of a batch of frames in one index sweep.
+
+    qdesc [B, Qs, D] int8: each frame's ``screen_queries`` rows. All frames'
+    128-bit prefixes stack into one [B*Qs, 128] screening call over every
+    slot of every slide (full K); each frame's candidates are the stable top
+    ``min(cfg.screen_slides, n_slides)`` of its votes. Returns [B, C] int32.
+    The strided pre-vote (``screen_prevote``) and prefixes other than 128
+    bits are not ported and are refused.
+    """
+    if cfg.screen_prevote:
+        raise NotImplementedError(
+            "screen_prevote=True: the strided pre-vote is not ported to slideo_tpu_torch"
+        )
+    if cfg.screen_bits != SCREEN_BITS:
+        raise NotImplementedError(
+            f"screen_bits={cfg.screen_bits}: only {SCREEN_BITS}-bit screening "
+            "is ported to slideo_tpu_torch"
+        )
+    b, qs, _ = qdesc.shape
+    prefixes = qdesc[..., :SCREEN_BITS].reshape(b * qs, SCREEN_BITS).contiguous()
+    best = screen_scores(prefixes, index.desc, index.valid, n_slides, k_per_slide)
+    votes = _screen_votes(best.reshape(b, qs, n_slides))
+    return top_k(votes, min(cfg.screen_slides, n_slides))[1].to(torch.int32)
 
 
 def match_table_frame(
     query: torch.Tensor,
+    query_score: torch.Tensor,
+    query_valid: torch.Tensor,
     index: DescriptorIndex,
     n_slides: int,
     k_per_slide: int,
     cfg: MatchConfig,
 ) -> MatchTable:
-    """Frame-level table: the exact table over every slide, for decks of at
-    most ``cfg.screen_above_slides`` slides. Stage-1 screening of larger
-    decks is not ported yet, and such a deck is refused, never matched some
-    other way."""
-    if n_slides > cfg.screen_above_slides:
-        raise NotImplementedError(
-            f"{n_slides} slides > screen_above_slides={cfg.screen_above_slides}: "
-            "the screened path is not ported to slideo_tpu_torch yet"
-        )
-    return match_table(query, index, n_slides, k_per_slide)
+    """Frame-level table: the exact table over every slide for decks of at
+    most ``cfg.screen_above_slides`` slides; above that, the frame's
+    stage-1 candidates (``screen_slides_batched`` on a batch of one) and the
+    exact table over those columns. The port has one stage-1 rule, the
+    batched path's, so a frame gets the same candidates alone as in a batch
+    (the JAX package's per-frame ``_screen_slides`` is not ported)."""
+    if n_slides <= cfg.screen_above_slides:
+        return match_table(query, index, n_slides, k_per_slide)
+    qdesc = screen_queries(query, query_score, query_valid, cfg)
+    cand = screen_slides_batched(qdesc[None], index, n_slides, k_per_slide, cfg)[0]
+    return match_table(query, index, n_slides, k_per_slide, slide_ids=cand)

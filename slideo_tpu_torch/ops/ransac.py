@@ -14,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from slideo_tpu.config import MatchConfig
+from ..config import MatchConfig
 
 __all__ = [
     "Similarity",

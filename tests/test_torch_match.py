@@ -26,6 +26,7 @@ from slideo_tpu_torch.ops import ransac as transac
 from slideo_tpu_torch.ops import select as tselect
 from slideo_tpu_torch.ops import verify as tverify
 from slideo_tpu_torch.ops.image import to_small_image
+from test_torch_config import port_cfg
 
 torch.set_num_threads(1)
 
@@ -65,12 +66,26 @@ def test_match_table_bit_equal(seed):
         assert np.array_equal(np.asarray(getattr(ji, name)), getattr(ti, name).numpy()), name
 
 
-def test_match_table_frame_refuses_screened_decks():
+@pytest.mark.parametrize("cand", [[4, 2, 3, 0], [5, 5, 1]])
+def test_match_table_over_slide_list_bit_equal(cand):
+    """Stage 2 of screened decks: the table over a frame's candidate slides
+    (a slide list read in place) equals JAX's table over the sub-index
+    copied for them, including a slide with no valid slot (3) and a slide
+    listed twice."""
     query, desc, valid = _index_case(0)
+    s, k, _ = desc.shape
+    ji = jham.build_index(jnp.asarray(desc), jnp.asarray(valid))
+    jc = jnp.asarray(cand, jnp.int32)
+    want = jham.match_table(
+        jnp.asarray(query), jham.sub_index_for_slides(ji, jc, k), len(cand), k, slide_ids=jc
+    )
     ti = tham.build_index(torch.from_numpy(desc), torch.from_numpy(valid))
-    cfg = dataclasses.replace(DEFAULT_CONFIG.match, screen_above_slides=4)
-    with pytest.raises(NotImplementedError, match="screened path"):
-        tham.match_table_frame(torch.from_numpy(query), ti, 6, 96, cfg)
+    got = tham.match_table(
+        torch.from_numpy(query), ti, s, k, slide_ids=torch.tensor(cand, dtype=torch.int32)
+    )
+    for name in ("dist", "train", "slide_ids", "valid"):
+        w, g = np.asarray(getattr(want, name)), getattr(got, name).numpy()
+        assert w.dtype == g.dtype and np.array_equal(w, g), name
 
 
 def _tie_table(seed: int, q: int = 120, s: int = 40):
@@ -102,12 +117,12 @@ def test_rank_and_compact_identical_on_ties(seed):
         valid=torch.from_numpy(svalid)[None].expand(q, s),
     )
     keep_j, counts_j, cols_j = jselect.rank_candidates_table(jt, jnp.asarray(qvalid), cfg)
-    keep_t, counts_t, cols_t = tselect.rank_candidates_table(tt, torch.from_numpy(qvalid), cfg)
+    keep_t, counts_t, cols_t = tselect.rank_candidates_table(tt, torch.from_numpy(qvalid), port_cfg(cfg))
     assert np.array_equal(np.asarray(keep_j), keep_t.numpy())
     assert np.array_equal(np.asarray(counts_j), counts_t.numpy())
     assert np.array_equal(np.asarray(cols_j), cols_t.numpy())
     want = jselect.compact_from_rank(jt, keep_j, counts_j, cols_j, cfg)
-    got = tselect.compact_from_rank(tt, keep_t, counts_t, cols_t, cfg)
+    got = tselect.compact_from_rank(tt, keep_t, counts_t, cols_t, port_cfg(cfg))
     for name, w, g in zip(want._fields, want, got):
         assert np.array_equal(np.asarray(w), g.numpy()), name
 
@@ -142,7 +157,7 @@ def test_ransac_with_injected_draws(iters):
     u = np.array(jax.random.uniform(key, (src.shape[0], iters, 2)))
     got = transac.ransac_similarity(
         torch.from_numpy(src), torch.from_numpy(dst), torch.from_numpy(valid),
-        torch.from_numpy(u), cfg,
+        torch.from_numpy(u), port_cfg(cfg),
     )
     assert np.array_equal(got.ok.numpy(), np.asarray(want.ok))
     assert np.array_equal(got.rating.numpy(), np.asarray(want.rating))
@@ -152,7 +167,7 @@ def test_ransac_with_injected_draws(iters):
 
 
 def test_uniform_draws_are_per_frame_deterministic():
-    cfg = dataclasses.replace(DEFAULT_CONFIG.match, ransac_iters=64)
+    cfg = port_cfg(dataclasses.replace(DEFAULT_CONFIG.match, ransac_iters=64))
     a = transac.uniform_draws(5, cfg, 17, torch.device("cpu"))
     b = transac.uniform_draws(5, cfg, 17, torch.device("cpu"))
     c = transac.uniform_draws(5, cfg, 18, torch.device("cpu"))

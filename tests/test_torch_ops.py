@@ -24,12 +24,14 @@ from slideo_tpu.ops.pallas_fast import fast_scores_pallas
 from slideo_tpu_torch.ops import cuda_fast
 from slideo_tpu_torch.ops import features as tfeat
 from slideo_tpu_torch.ops import image as timage
+from test_torch_config import port_cfg
 
 torch.set_num_threads(1)
 
 ORB = dataclasses.replace(
     DEFAULT_CONFIG.orb, n_features=256, max_keypoints=256, n_levels=4, edge_threshold=32,
 )
+TORB = port_cfg(ORB)
 
 
 def _scene(seed: int, h: int = 240, w: int = 320) -> np.ndarray:
@@ -47,7 +49,7 @@ def atlas_pair():
     """One scene's pyramid atlas from both packages (bf16 stored)."""
     img = _scene(0)
     aj = np.asarray(jfeat.build_pyramid(jnp.asarray(img, jnp.float32), ORB).astype(jnp.float32))
-    at = tfeat.build_pyramid(torch.from_numpy(img).to(torch.float32), ORB)
+    at = tfeat.build_pyramid(torch.from_numpy(img).to(torch.float32), TORB)
     return img, aj, at
 
 
@@ -85,7 +87,7 @@ def test_resize_65_weights_bit_equal(n_out, n_in):
 @pytest.mark.parametrize("hw", [(240, 320), (1080, 1920), (720, 1280), (173, 131)])
 def test_pyramid_meta_equal(hw):
     for cfg in (ORB, DEFAULT_CONFIG.orb):
-        assert tuple(tfeat.pyramid_meta(*hw, cfg)) == tuple(jfeat.pyramid_meta(*hw, cfg))
+        assert tuple(tfeat.pyramid_meta(*hw, port_cfg(cfg))) == tuple(jfeat.pyramid_meta(*hw, cfg))
 
 
 def test_build_pyramid_matches_jax(atlas_pair):
@@ -128,10 +130,10 @@ def test_fast_plain_structured_shapes():
 def test_detect_from_scores_identical(atlas_pair):
     _, aj, at = atlas_pair
     meta_j = jfeat.pyramid_meta(240, 320, ORB)
-    meta_t = tfeat.pyramid_meta(240, 320, ORB)
+    meta_t = tfeat.pyramid_meta(240, 320, TORB)
     scores = cuda_fast.fast_score_map(at, 20).numpy()
     want = jfeat.detect_from_scores(jnp.asarray(scores), meta_j, ORB)
-    got = tfeat.detect_from_scores(torch.from_numpy(scores), meta_t, ORB)
+    got = tfeat.detect_from_scores(torch.from_numpy(scores), meta_t, TORB)
     for name, w, g in zip(want._fields, want, got):
         assert np.array_equal(np.asarray(w), g.numpy()), name
 
@@ -139,13 +141,13 @@ def test_detect_from_scores_identical(atlas_pair):
 def test_detect_from_scores_tie_order():
     """Integer scores tie constantly: equal scores must come out in
     ascending flat index, as jax.lax.top_k / approx_max_k on the CPU."""
-    meta = tfeat.pyramid_meta(240, 320, ORB)
+    meta = tfeat.pyramid_meta(240, 320, TORB)
     rng = np.random.RandomState(5)
     scores = np.zeros(meta.atlas_hw, np.float32)
     mask = rng.rand(*meta.atlas_hw) < 0.05
     scores[mask] = rng.randint(21, 25, mask.sum()).astype(np.float32)
     want = jfeat.detect_from_scores(jnp.asarray(scores), jfeat.pyramid_meta(240, 320, ORB), ORB)
-    got = tfeat.detect_from_scores(torch.from_numpy(scores), meta, ORB)
+    got = tfeat.detect_from_scores(torch.from_numpy(scores), meta, TORB)
     for name, w, g in zip(want._fields, want, got):
         assert np.array_equal(np.asarray(w), g.numpy()), name
 

@@ -22,12 +22,14 @@ from slideo_tpu.ops import features as jfeat
 from slideo_tpu.ops import orb as jorb
 from slideo_tpu.ops import pallas_orb
 from slideo_tpu_torch.ops import cuda_orb, features as tfeat, orb as torb
+from test_torch_config import port_cfg
 
 torch.set_num_threads(1)
 
 ORB = dataclasses.replace(
     DEFAULT_CONFIG.orb, n_features=256, max_keypoints=256, n_levels=4, edge_threshold=32,
 )
+TORB = port_cfg(ORB)
 
 
 def _scene(seed: int, h: int = 240, w: int = 320) -> np.ndarray:
@@ -60,10 +62,10 @@ def described():
     """Keypoints of one scene described by the Pallas kernel (interpret
     mode, one shared run) and by the port's plain version."""
     img = _scene(3)
-    atlas_t = tfeat.build_pyramid(torch.from_numpy(img).to(torch.float32), ORB)
+    atlas_t = tfeat.build_pyramid(torch.from_numpy(img).to(torch.float32), TORB)
     atlas = atlas_t.to(torch.float32).numpy()
-    meta = tfeat.pyramid_meta(*img.shape, ORB)
-    kps = tfeat.detect_pyramid(atlas_t, meta, ORB)
+    meta = tfeat.pyramid_meta(*img.shape, TORB)
+    kps = tfeat.detect_pyramid(atlas_t, meta, TORB)
     lvl = kps.level.numpy()
     y_lo = np.asarray(meta.offsets, np.int32)[lvl]
     x_lo = np.asarray(meta.xoffsets, np.int32)[lvl]
@@ -167,7 +169,7 @@ def test_describe_features_match_jax_layout(described):
     kps_j = jfeat.Keypoints(*(jnp.asarray(f.numpy()) for f in d["kps"]))
     for q in (128, 256):
         want = jfeat.describe(jnp.asarray(d["atlas"]).astype(jnp.bfloat16), meta_j, kps_j, q, ORB)
-        got = tfeat.describe(d["atlas_t"], d["meta"], d["kps"], q, ORB)
+        got = tfeat.describe(d["atlas_t"], d["meta"], d["kps"], q, TORB)
         assert np.array_equal(got.pts.numpy(), np.asarray(want.pts))
         assert np.array_equal(got.score.numpy(), np.asarray(want.score))
         assert np.array_equal(got.valid.numpy(), np.asarray(want.valid))

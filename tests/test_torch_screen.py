@@ -1,0 +1,304 @@
+"""The port's screened path for decks above ``screen_above_slides`` slides.
+
+Same numpy inputs through the JAX package and ``slideo_tpu_torch`` on the
+CPU. The JAX package builds its screening tensor only on a TPU, so each JAX
+index here gets it attached by hand, as ``test_screened_batch.py`` does, and
+the Pallas screening kernel runs with ``interpret=True``.
+
+(i)   K5 mode (b)'s plain version == the Pallas kernel, bit for bit.
+(ii)  ``screen_slides_batched`` gives JAX's candidate ids: random, tie-heavy
+      and exact vote-boundary decks.
+(iii) ``match_frames`` and ``MatchingEngine`` on a 100-slide deck assign
+      JAX's slides.
+(iv)  On JAX's own features: the same candidates, a bit-equal stage-2 table
+      over them and, with JAX's RANSAC draws, the same slide, rating and
+      similarity as JAX's batched screened path.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from slideo_tpu.config import DEFAULT_CONFIG, OrbConfig
+from slideo_tpu.models import orb_matcher as jom
+from slideo_tpu.ops import features as jfeat
+from slideo_tpu.ops import hamming as jham
+from slideo_tpu.ops.pallas_table import match_table_scores_pallas
+from slideo_tpu_torch.app.pipeline import MatchingEngine, PdfPage
+from slideo_tpu_torch.models import orb_matcher as tom
+from slideo_tpu_torch.ops import cuda_screen
+from slideo_tpu_torch.ops import features as tfeat
+from slideo_tpu_torch.ops import hamming as tham
+from slideo_tpu_torch.ops.image import to_small_image
+from test_screened_batch import _deck
+from test_torch_config import port_cfg
+
+torch.set_num_threads(1)
+
+
+def _pm1(rng, *shape) -> np.ndarray:
+    return np.where(rng.rand(*shape) > 0.5, 1, -1).astype(np.int8)
+
+
+def _jax_index(desc: np.ndarray, valid: np.ndarray):
+    """JAX index of [S, K, D] descriptors with its screening tensor."""
+    s, k, _ = desc.shape
+    ji = jham.build_index(jnp.asarray(desc), jnp.asarray(valid))
+    return ji._replace(screen_desc=jham.build_screen_desc(ji.desc, ji.valid, s, k))
+
+
+def _port_index(desc: np.ndarray, valid: np.ndarray):
+    return tham.build_index(torch.from_numpy(desc), torch.from_numpy(valid))
+
+
+@pytest.mark.parametrize("k", [256, 384])
+def test_screen_scores_plain_equals_pallas(k):
+    rng = np.random.RandomState(k)
+    s, r = 5, 70
+    desc = _pm1(rng, s, k, 256)
+    valid = rng.rand(s, k) > 0.25
+    valid[2] = False                        # a slide with no valid slot: -254
+    query = _pm1(rng, r, 256)
+    query[[3, 40, 69]] = 0                  # invalid query rows are all zero
+    desc[4, 7] = query[0]                   # an exact prefix hit (+128)
+    valid[4, 7] = True
+    desc[1, 9, :128] = -query[1, :128]      # the worst valid prefix (-128)
+    valid[1] = False
+    valid[1, 9] = True
+    ji = _jax_index(desc, valid)
+    qp = jnp.concatenate(
+        [jnp.asarray(query[:, :128]), jnp.ones((r, 2), jnp.int8), jnp.zeros((r, 30), jnp.int8)],
+        axis=1,
+    )
+    want, _ = match_table_scores_pallas(
+        qp, ji.screen_desc, jnp.zeros((s * k,), jnp.float32), s, k, dtype=jnp.int8,
+        with_arg=False, transposed=True, skip_bias=True, interpret=True,
+    )
+    want = np.asarray(want)
+    ti = _port_index(desc, valid)
+    got = cuda_screen.screen_scores(
+        torch.from_numpy(query[:, :128]).contiguous(), ti.desc, ti.valid, s, k
+    ).numpy()
+    assert got.dtype == np.int32 and np.array_equal(got, want.astype(np.int32))
+    assert np.array_equal(want, got.astype(np.float32))
+    assert (got[:, 2] == -254).all() and got[0, 4] == 128 and got[1, 1] == -128
+    assert (got[3, [0, 1, 3, 4]] == 0).all()   # zero row vs valid slots
+
+
+def _screen_both(qdesc: np.ndarray, desc: np.ndarray, valid: np.ndarray, cfg):
+    s, k, _ = desc.shape
+    want = jham.screen_slides_batched(
+        jnp.asarray(qdesc), _jax_index(desc, valid), s, k, cfg, interpret=True
+    )
+    got = tham.screen_slides_batched(
+        torch.from_numpy(qdesc), _port_index(desc, valid), s, k, port_cfg(cfg)
+    )
+    return np.asarray(want), got.numpy()
+
+
+def _near(rng, rows: np.ndarray, flips: int) -> np.ndarray:
+    """``rows`` with ``flips`` random bits of the 128-bit prefix flipped."""
+    out = rows.copy()
+    for row in out.reshape(-1, rows.shape[-1]):
+        row[rng.choice(128, flips, replace=False)] *= -1
+    return out
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_screen_slides_batched_same_candidates(ties):
+    """Frames whose queries lie near one slide's slots. With ``ties`` the
+    deck is 10 slides repeated 4 times, so vote counts tie in groups and the
+    order among them (lowest index first) decides the top 16."""
+    rng = np.random.RandomState(11 + ties)
+    s, k, b, qs = 40, 128, 3, 48
+    desc = np.tile(_pm1(rng, 10, k, 256), (4, 1, 1)) if ties else _pm1(rng, s, k, 256)
+    valid = rng.rand(s, k) > 0.2
+    if ties:
+        valid = np.tile(valid[:10], (4, 1))
+    valid[5] = False
+    qdesc = np.stack([
+        _near(rng, desc[t, rng.choice(k, qs)], int(rng.randint(6, 30))) for t in (3, 17, 28)
+    ])
+    qdesc[1, :5] = 0                        # invalid rows among the queries
+    cfg = DEFAULT_CONFIG.match
+    want, got = _screen_both(qdesc, desc, valid, cfg)
+    assert want.shape == got.shape == (b, cfg.screen_slides)
+    assert np.array_equal(got, want)
+    if not ties:
+        assert got[:, 0].tolist() == [3, 17, 28]
+
+
+@pytest.mark.parametrize("bestd", [0, 19, 20, 40, 60, 80, 100, 120])
+def test_screen_votes_at_the_boundary(bestd):
+    """A query x and slides whose nearest slot lies exactly at prefix
+    distance bestd, at the float32 threshold bestd*1.05 + 1 (kept) and one
+    bit past it (dropped): the candidates' order shows which slides voted."""
+    rng = np.random.RandomState(bestd)
+    thr = int(np.floor(np.float32(bestd) * np.float32(1.05) + np.float32(1.0)))
+    dists = [128, thr + 1, bestd, min(thr + 1, 128), thr, 128, bestd + 1]
+    s, k = len(dists), 128
+    x = _pm1(rng, 256)
+    desc = np.tile(-x, (s, k, 1))                 # every other slot at distance 128
+    for j, d in enumerate(dists):
+        desc[j, 5] = x
+        desc[j, 5, rng.choice(128, d, replace=False)] *= -1
+    valid = np.ones((s, k), bool)
+    qdesc = np.stack([x[None], -x[None]])         # and a frame whose query is -x
+    cfg = dataclasses.replace(DEFAULT_CONFIG.match, screen_slides=4)
+    want, got = _screen_both(qdesc, desc, valid, cfg)
+    assert np.array_equal(got, want)
+    kept = [j for j, d in enumerate(dists) if d <= thr]
+    assert got[0].tolist() == (kept + [j for j in range(s) if j not in kept])[:4]
+    assert 4 in got[0] and 1 not in got[0]
+
+
+@pytest.mark.parametrize("n_slides", [96, 97])
+def test_match_table_frame_screens_decks_above_the_limit(n_slides):
+    """A single frame's table: all columns up to screen_above_slides = 96;
+    above it, the columns of the frame's stage-1 candidates, the same ones
+    the batch path gives it."""
+    rng = np.random.RandomState(n_slides)
+    k, q = 128, 300
+    desc = _pm1(rng, n_slides, k, 256)
+    valid = rng.rand(n_slides, k) > 0.2
+    query = _near(rng, desc[40, rng.choice(k, q)], 20)
+    score = torch.from_numpy(rng.rand(q).astype(np.float32))
+    qvalid = torch.from_numpy(rng.rand(q) > 0.1)
+    query[~qvalid.numpy()] = 0
+    ti, tq = _port_index(desc, valid), torch.from_numpy(query)
+    mcfg = port_cfg(DEFAULT_CONFIG.match)
+    got = tham.match_table_frame(tq, score, qvalid, ti, n_slides, k, mcfg)
+    if n_slides <= mcfg.screen_above_slides:
+        want_ids = torch.arange(n_slides, dtype=torch.int32)
+    else:
+        qdesc = tham.screen_queries(tq, score, qvalid, mcfg)
+        want_ids = tham.screen_slides_batched(qdesc[None], ti, n_slides, k, mcfg)[0]
+        assert want_ids.shape == (mcfg.screen_slides,) and int(want_ids[0]) == 40
+    want = tham.match_table(tq, ti, n_slides, k, slide_ids=want_ids)
+    for name in ("dist", "train", "slide_ids", "valid"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+def test_screening_refuses_options_not_ported():
+    ti = _port_index(np.ones((2, 128, 256), np.int8), np.ones((2, 128), bool))
+    q = torch.ones((1, 4, 256), dtype=torch.int8)
+    for field, value in (("screen_prevote", True), ("screen_bits", 64)):
+        cfg = port_cfg(dataclasses.replace(DEFAULT_CONFIG.match, **{field: value}))
+        with pytest.raises(NotImplementedError, match=field):
+            tham.screen_slides_batched(q, ti, 2, 128, cfg)
+
+
+# --- the 100-slide deck of test_screened_batch.py --------------------------
+
+HW = (180, 240)
+
+
+@pytest.fixture(scope="module")
+def deck100():
+    rng = np.random.RandomState(3)
+    n_slides = 100
+    slides = _deck(rng, n_slides, HW)
+    import cv2
+
+    frames = []
+    for _ in range(3):
+        s = rng.randint(n_slides)
+        m = cv2.getRotationMatrix2D((HW[1] / 2, HW[0] / 2), rng.uniform(-2, 2), rng.uniform(0.95, 1.0))
+        fr = cv2.warpAffine(slides[s], m, (HW[1], HW[0]), borderValue=40)
+        frames.append(np.clip(fr.astype(np.float32) + rng.randn(*HW), 0, 255).astype(np.uint8))
+    frames = np.stack(frames)
+    cfg = dataclasses.replace(
+        DEFAULT_CONFIG,
+        orb=OrbConfig(n_features=384, max_keypoints=384, n_levels=4, edge_threshold=32,
+                      query_buckets=(256,)),
+        match=dataclasses.replace(DEFAULT_CONFIG.match, ransac_iters=256),
+    )
+    index = jom.build_slide_index_chunked(slides, cfg, chunk=25)
+    di = index.desc_index
+    k = index.pts.shape[1]
+    index = index._replace(
+        desc_index=di._replace(screen_desc=jham.build_screen_desc(di.desc, di.valid, n_slides, k))
+    )
+    seeds = jnp.arange(len(frames), dtype=jnp.int32)
+    want = jom.match_frames(jnp.asarray(frames), seeds, index, HW, cfg)   # batched path
+    return cfg, slides, frames, index, want
+
+
+def test_match_frames_screened_same_slides(deck100):
+    """``match_frames`` on the engine's 100-slide index, then the engine's
+    timeline of the same frames (5 s apart), both with JAX's slides."""
+    cfg, slides, frames, _, want = deck100
+    tcfg = port_cfg(cfg)
+    pages = [PdfPage(Path("deck.pdf"), "h", Path(f"p-{i + 1}.png"), i + 1) for i in range(len(slides))]
+    engine = MatchingEngine(tcfg, pages, device="cpu", page_grays=slides)
+    got = tom.match_frames(torch.from_numpy(frames), list(range(len(frames))), engine.index, HW, tcfg)
+    want_slides = np.asarray(want.slide).tolist()
+    assert got.slide.tolist() == want_slides
+    assert min(want_slides) >= 0
+
+    samples = [(i, 5.0 * i, f) for i, f in enumerate(frames)]
+    timeline = engine.match_samples(samples, total_ms=15000, total_frames=len(frames))
+    expected = [(5000 * i, s + 1) for i, s in enumerate(want_slides)
+                if i == 0 or s != want_slides[i - 1]] + [(15000, None)]
+    assert [(m.video_ms, m.page.page_nr if m.page else None) for m in timeline] == expected
+
+
+def test_screened_stage2_and_cascade_with_jax_draws(deck100):
+    cfg, _, frames, ji, want = deck100
+    tcfg = port_cfg(cfg)
+    s, k = ji.pts.shape[0], ji.pts.shape[1]
+    di = ji.desc_index
+    ti = tom.slide_index_from_numpy(
+        np.asarray(di.desc), np.asarray(di.valid), np.asarray(ji.pts), np.asarray(ji.smalls)
+    )
+    meta = jfeat.pyramid_meta(*HW, cfg.orb)
+    feats, qdescs = [], []
+    for f in frames:
+        atlas = jfeat.build_pyramid(jnp.asarray(f, jnp.float32), cfg.orb)
+        kps = jfeat.detect_pyramid(atlas, meta, cfg.orb)
+        q = next(b for b in jom._query_buckets(cfg) if b >= int(jnp.sum(kps.valid)))
+        ft = jfeat.describe(atlas, meta, kps, q, cfg.orb)
+        tft = tfeat.Features(*(torch.from_numpy(np.array(x)) for x in ft))
+        feats.append((ft, tft))
+        qdescs.append(tham.screen_queries(tft.desc, tft.score, tft.valid, tcfg.match))
+    # JAX's own query choice (orb_matcher.py:395-397) over padded features.
+    jq = []
+    for ft, _ in feats:
+        ftp = jom._pad_features(ft, cfg.orb.max_keypoints)
+        _, topq = jax.lax.top_k(jnp.where(ftp.valid, ftp.score, -1.0), cfg.match.screen_queries)
+        jq.append(np.asarray(ftp.desc)[np.asarray(topq)])
+    assert np.array_equal(torch.stack(qdescs).numpy(), np.stack(jq))
+
+    cand_j = np.asarray(jham.screen_slides_batched(
+        jnp.asarray(np.stack(jq)), di, s, k, cfg.match, interpret=True
+    ))
+    cand_t = tham.screen_slides_batched(torch.stack(qdescs), ti.desc_index, s, k, tcfg.match)
+    assert np.array_equal(cand_t.numpy(), cand_j)
+
+    for i, ((ft, tft), cand) in enumerate(zip(feats, cand_t)):
+        jc = jnp.asarray(cand_j[i])
+        jt = jham.match_table(ft.desc, jham.sub_index_for_slides(di, jc, k), len(cand), k, slide_ids=jc)
+        tt = tham.match_table(tft.desc, ti.desc_index, s, k, slide_ids=cand)
+        for name in ("dist", "train", "slide_ids", "valid"):
+            assert np.array_equal(getattr(tt, name).numpy(), np.asarray(getattr(jt, name))), name
+        key = jax.random.fold_in(jax.random.key(cfg.match.ransac_seed), jnp.int32(i))
+        n_cand = min(cfg.match.top_slides, len(cand))
+        u = np.array(jax.random.uniform(key, (n_cand, cfg.match.ransac_iters, 2)))
+        got = tom.cascade_from_table(
+            to_small_image(torch.from_numpy(frames[i].astype(np.float32))), HW,
+            torch.from_numpy(u), tft, tt, ti.pts, ti.smalls, HW, tcfg,
+        )
+        assert int(got.slide) == int(want.slide[i]), i
+        assert float(got.rating) == float(want.rating[i]), i
+        w_sim = float(want.similarity[i])
+        if np.isfinite(w_sim):
+            assert abs(float(got.similarity) - w_sim) <= 1e-4, i
+        else:
+            assert float(got.similarity) == w_sim, i

@@ -6,7 +6,8 @@
 2. Port ``match_frames`` and JAX ``match_frames`` assign the same slides.
 3. Port ``sync`` and JAX ``pipeline.sync`` write the same videos_mapping
    rows (the fixture of test_pipeline.py).
-4. The port imports and runs its slice without importing jax or cv2.
+4. The port imports and runs its slice, exact and screened, without
+   importing jax, cv2 or anything of the JAX package.
 """
 
 from __future__ import annotations
@@ -25,7 +26,6 @@ import torch
 
 import __graft_entry__ as graft
 from slideo_tpu.app import pipeline as jpipeline
-from slideo_tpu.app.db import Db, PdfExtractedPagesDir
 from slideo_tpu.models import orb_matcher as jom
 from slideo_tpu.ops import features as jfeat
 from slideo_tpu.ops import hamming as jham
@@ -35,6 +35,7 @@ from slideo_tpu_torch.ops import features as tfeat
 from slideo_tpu_torch.ops import hamming as tham
 from slideo_tpu_torch.ops.image import to_small_image
 from test_pipeline import fixture_dir, small_cfg  # noqa: F401  (shared fixtures)
+from test_torch_config import port_cfg
 
 torch.set_num_threads(1)
 
@@ -54,7 +55,12 @@ def deck():
     return cfg, slides, frames, index
 
 
-def test_cascade_from_jax_index_and_features(deck):
+@pytest.fixture(scope="module")
+def tcfg(deck):
+    return port_cfg(deck[0])
+
+
+def test_cascade_from_jax_index_and_features(deck, tcfg):
     cfg, _, frames, ji = deck
     s, k = ji.pts.shape[0], ji.pts.shape[1]
     ti = tom.slide_index_from_numpy(
@@ -78,7 +84,7 @@ def test_cascade_from_jax_index_and_features(deck):
         assert np.array_equal(ttable.train.numpy(), np.asarray(table.train))
         got = tom.cascade_from_table(
             to_small_image(torch.from_numpy(np.array(frame))), HW, torch.from_numpy(u),
-            tfeats, ttable, ti.pts, ti.smalls, HW, cfg,
+            tfeats, ttable, ti.pts, ti.smalls, HW, tcfg,
         )
         assert int(got.slide) == int(want.slide), seed
         assert float(got.rating) == float(want.rating), seed
@@ -88,28 +94,21 @@ def test_cascade_from_jax_index_and_features(deck):
             assert float(got.similarity) == float(want.similarity), seed
 
 
-def test_match_frames_same_assignments(deck):
+def test_match_frames_same_assignments(deck, tcfg):
     cfg, slides, frames, ji = deck
     n = frames.shape[0]
     want = jom.match_frames(jnp.asarray(frames), jnp.arange(n, dtype=jnp.int32), ji, HW, cfg)
-    ti = tom.build_slide_index(slides, cfg, "cpu")
-    got = tom.match_frames(torch.from_numpy(frames), list(range(n)), ti, HW, cfg)
+    ti = tom.build_slide_index(slides, tcfg, "cpu")
+    got = tom.match_frames(torch.from_numpy(frames), list(range(n)), ti, HW, tcfg)
     assert got.slide.tolist() == np.asarray(want.slide).tolist() == [0, 1, 2, 3, -1]
 
 
-def test_match_frames_refuses_screened_decks(deck):
-    import dataclasses
-
-    cfg, slides, frames, _ = deck
-    cfg = dataclasses.replace(cfg, match=dataclasses.replace(cfg.match, screen_above_slides=3))
-    ti = tom.build_slide_index(slides, cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="screened path"):
-        tom.match_frames(torch.from_numpy(frames[:1]), [0], ti, HW, cfg)
-
-
 def _sync_rows(module, fixture, cfg, tmp: Path, **kw):
-    db = Db(tmp / f"{module.__name__.replace('.', '_')}.db")
-    db.set_pdf_extracted_pages_dir(PdfExtractedPagesDir(fixture["pdf_hash"], fixture["pages_dir"], True))
+    """Rows that ``module``'s ``sync`` writes through its own package's Db."""
+    db = module.Db(tmp / f"{module.__name__.replace('.', '_')}.db")
+    db.set_pdf_extracted_pages_dir(
+        module.PdfExtractedPagesDir(fixture["pdf_hash"], fixture["pages_dir"], True)
+    )
     pages = module.pdfs_to_images([(fixture["pdf_path"], fixture["pdf_hash"])], db)
     db.create_or_reset_video(fixture["video_hash"], [fixture["pdf_hash"]])
     module.sync(pages, [(fixture["vid_path"], fixture["video_hash"])], db, cfg, **kw)
@@ -126,7 +125,9 @@ def test_sync_writes_same_rows_as_jax(fixture_dir, small_cfg, tmp_path, monkeypa
     tempfile.tempdir = None
     try:
         want, _ = _sync_rows(jpipeline, fixture_dir, small_cfg, tmp_path)
-        got, finished = _sync_rows(tpipeline, fixture_dir, small_cfg, tmp_path, device="cpu")
+        got, finished = _sync_rows(
+            tpipeline, fixture_dir, port_cfg(small_cfg), tmp_path, device="cpu"
+        )
     finally:
         tempfile.tempdir = None
     assert finished
@@ -165,12 +166,20 @@ def frame_of(page):
     f = np.roll(page.astype(np.float32), (2, 3), axis=(0, 1)) + rng.randn(240, 320) * 3
     return np.clip(np.rint(f), 0, 255).astype(np.uint8)
 pages = [PdfPage("deck.pdf", "h", f"p-{i + 1}.png", i + 1) for i in range(2)]
-engine = MatchingEngine(cfg, pages, device="cpu", page_grays=pages_np)
 f1, f0 = frame_of(pages_np[1]), frame_of(pages_np[0])
 samples = [(0, 0.0, f1), (5, 5.0, f1), (10, 10.0, f0)]
-out = engine.match_samples(samples, total_ms=15000, total_frames=15)
-assert [m.page.page_nr if m.page else None for m in out] == [2, 1, None], out
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cv2"))
+# A 2-slide deck takes the exact table; with screen_above_slides=1 it takes
+# the screened batch path (stage-1 screening, then the table over the
+# candidates).
+screened = dataclasses.replace(cfg, match=dataclasses.replace(cfg.match, screen_above_slides=1))
+for c in (cfg, screened):
+    engine = MatchingEngine(c, pages, device="cpu", page_grays=pages_np)
+    out = engine.match_samples(samples, total_ms=15000, total_frames=15)
+    assert [m.page.page_nr if m.page else None for m in out] == [2, 1, None], out
+bad = sorted(
+    m for m in sys.modules
+    if m.split(".")[0] in ("jax", "jaxlib", "cv2", "slideo_tpu")
+)
 assert not bad, bad
 print("NO_JAX_OK")
 """
