@@ -29,11 +29,32 @@ Phases:
    timeline through the port's ``Db``, checks that the screened run
    assigns every matched frame the slide the exact run (screening off)
    assigns, and that the screened run launched ``screen`` and ``table``.
+6. The multi-device path, on every visible card or, with one card, on a
+   mesh of two entries of ``cuda:0`` (it shows the path is right, not that
+   it scales). (a) Frame DP: phase 4's deck and stream through
+   ``MatchingEngine(..., mesh_devices=...)``; the timeline must equal
+   phase 4's row for row. (b) Index parallel: phase 5's 500-slide index
+   (the exact run's, not built again) split over a 1 x 2 ("frames",
+   "index") mesh and ``match_frames_mesh`` on the exact run's matched
+   frames (Q = 2048 against 250 slides x 2048 slots per shard): the
+   gathered table is bit-equal to the table over all 500 slides, the
+   assignments equal the exact run's, and one shard's table launch (the
+   counterpart of the TPU table kernel's non-transposed mode, K5 (c)) is
+   timed against its plain version.
+7. K2: the batched FAST kernel on the 64 page atlases of phase 4's deck
+   ([64, 3880, 1920] bf16) bit-equal to 64 K1 launches and to its plain
+   version, timed against both; then the stage profile
+   (``slideo_tpu_torch.tools.profile_stages``, batch 8) on that deck and
+   the first 32 frames of phase 4's stream.
 
-Prints the kernel table as one JSON line (each kernel's time, its plain
-version's, its bound on an H100 SXM from this run's shapes and, where one
-PyTorch call computes the same function, that call's time), then the
-nvidia-smi line, then ``{"ok": true, "device": {...}}`` as the last line.
+Every path (phases 4, 5 screened, 6a, 6b, 7's profile) runs with the
+launch counts set to 0 just before it and read just after; a kernel's
+``launches`` is its count summed over them, where the table launches of
+6b are K5 (c)'s and the others K5 (a)'s. Prints the kernel table as one
+JSON line (each kernel's time, its plain version's, its bound on an H100
+SXM from this run's shapes and, where one PyTorch call computes the same
+function, that call's time), then the nvidia-smi line, then
+``{"ok": true, "device": {...}}`` as the last line.
 Any failed check raises and exits nonzero; without a CUDA device it exits
 nonzero before printing any result. Imports neither jax nor cv2, and
 nothing of the JAX package.
@@ -353,22 +374,25 @@ def make_stream(rng: np.random.RandomState, deck: np.ndarray):
     return runs
 
 
-def phase_slice(torch, deck: np.ndarray, runs, seed: int, smi: str) -> dict[str, int]:
+def phase_slice(torch, deck: np.ndarray, runs, seed: int, smi: str) -> dict:
     from slideo_tpu_torch import DEFAULT_CONFIG
 
     out = drive_engine(torch, DEFAULT_CONFIG, deck, runs, seed, smi, "slice")
     for name in ("fast", "orb", "table", "warp"):
         check(out["launches"][name] > 0, f"kernel {name} was never launched by the match path")
-    return out["launches"]
+    return out
 
 
-def drive_engine(torch, cfg, deck: np.ndarray, runs, seed: int, smi: str, tag: str) -> dict:
-    """Index ``deck`` with ``MatchingEngine`` and stream the runs' frames
-    through ``match_samples``, with every launch count set to 0 just before
-    and read just after; write the timeline through the port's ``Db``,
-    read it back and check it against the runs. Returns the launches, the
-    frame -> page rows of every matched frame (the engine's checkpoint
-    rows) and the engine's deck index."""
+def drive_engine(torch, cfg, deck: np.ndarray, runs, seed: int, smi: str, tag: str,
+                 mesh_devices=None) -> dict:
+    """Index ``deck`` with ``MatchingEngine`` (on a frame-parallel mesh of
+    ``mesh_devices`` when given, else on cuda:0 alone, however many cards
+    there are) and stream the runs' frames through
+    ``match_samples``, with every launch count set to 0 just before and
+    read just after; write the timeline through the port's ``Db``, read it
+    back and check it against the runs. Returns the launches, the frame ->
+    page rows of every matched frame (the engine's checkpoint rows), the
+    sampled frames by index, the timeline rows and the engine."""
     from slideo_tpu_torch import _kernels
     from slideo_tpu_torch.app.db import Db
     from slideo_tpu_torch.app.pipeline import MatchingEngine, PdfPage
@@ -393,16 +417,20 @@ def drive_engine(torch, cfg, deck: np.ndarray, runs, seed: int, smi: str, tag: s
     _kernels.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    engine = MatchingEngine(cfg, pages, device="cuda", page_grays=deck)
+    one_device = mesh_devices is None
+    engine = MatchingEngine(cfg, pages, device="cuda:0", page_grays=deck,
+                            mesh_devices=["cuda:0"] if one_device else mesh_devices)
     torch.cuda.synchronize()
     t_index = time.perf_counter() - t0
+    check((engine.mesh is None) == one_device, f"{tag}: the engine's mesh is {engine.mesh}")
     t0 = time.perf_counter()
     timeline = engine.match_samples(samples, total_ms=total_ms, total_frames=total_frames,
                                     checkpoint=checkpoint, frames_total=len(samples))
     torch.cuda.synchronize()
     t_match = time.perf_counter() - t0
     launches = dict(_kernels.launches)
-    print(f"[{tag}] index of {len(deck)} slides {FRAME_HW[0]}x{FRAME_HW[1]} built in {t_index:.3f} s ({smi})")
+    print(f"[{tag}] index of {len(deck)} slides {FRAME_HW[0]}x{FRAME_HW[1]} built in {t_index:.3f} s "
+          f"({smi}); mesh {engine.mesh}")
     print(f"[{tag}] {len(samples)} sampled frames ({len(matched)} changed and matched) in "
           f"{t_match:.3f} s: {len(samples) / t_match:.2f} frames/s ({smi}); kernel launches {launches}")
 
@@ -430,7 +458,8 @@ def drive_engine(torch, cfg, deck: np.ndarray, runs, seed: int, smi: str, tag: s
     check(all(h in (pdf_hash, None) for _, h, _ in rows), f"{tag}: rows name a foreign pdf hash")
     check(got == want, f"{tag}: timeline differs from the stream's runs: want {want}")
     check(rows[-1][1] is None and rows[-1][0] == total_ms, f"{tag}: the sentinel row is not last")
-    return dict(launches=launches, matched=matched, index=engine.index)
+    return dict(launches=launches, matched=matched, frames={i: f for i, _, f in samples},
+                timeline=got, engine=engine)
 
 
 def make_reveal_deck(rng: np.random.RandomState) -> np.ndarray:
@@ -466,9 +495,10 @@ def make_screened_stream(rng: np.random.RandomState, deck: np.ndarray, n_familie
     return runs
 
 
-def phase_screened(torch, seed: int, smi: str) -> tuple[dict, dict]:
-    """The screened path on a 500-slide deck; returns K5 (b)'s kernel row
-    and the screened run's launches."""
+def phase_screened(torch, seed: int, smi: str) -> tuple[dict, dict, dict]:
+    """The screened path on a 500-slide deck; returns K5 (b)'s kernel row,
+    the screened run's launches and the exact run (``drive_engine``'s
+    result)."""
     import dataclasses
 
     from slideo_tpu_torch import DEFAULT_CONFIG
@@ -503,7 +533,7 @@ def phase_screened(torch, seed: int, smi: str) -> tuple[dict, dict]:
 
     # (a): K5 (b) on 64 frames' stacked query prefixes against the index.
     dev = torch.device("cuda")
-    index = screened["index"]
+    index = screened["engine"].index
     di = index.desc_index
     n_slides, kps_per = index.pts.shape[0], index.pts.shape[1]
     frames = [f for _, fs in runs for f in fs][:cfg.video.batch_size]
@@ -549,7 +579,142 @@ def phase_screened(torch, seed: int, smi: str) -> tuple[dict, dict]:
         print(f"[K5] query {tuple(query.shape)} x candidates {cand.tolist()}: best+arg bit-equal {same}; "
               f"kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms ({smi})")
         check(same, f"K5 table kernel over a slide list at Q={q} is not bit-equal to its plain version")
-    return row, screened["launches"]
+    return row, screened["launches"], exact
+
+
+def mesh_devices(torch) -> list:
+    """Every visible card, or two entries of cuda:0 on a machine with one."""
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", i) for i in range(n)] if n > 1 else [torch.device("cuda", 0)] * 2
+
+
+def phase_mesh(torch, deck: np.ndarray, runs, seed: int, smi: str, slice_out: dict,
+               exact: dict) -> tuple[dict, dict, dict]:
+    """(a) frame DP through the engine, (b) the index-parallel step on the
+    500-slide index. Returns K5 (c)'s kernel row and the launches of (a)
+    and (b)."""
+    from slideo_tpu_torch import DEFAULT_CONFIG, _kernels
+    from slideo_tpu_torch.ops import cuda_table, features, hamming
+    from slideo_tpu_torch.parallel import mesh as pmesh
+
+    cfg = DEFAULT_CONFIG
+    devs = mesh_devices(torch)
+
+    # (a): frame DP, phase 4's deck and stream.
+    dp = drive_engine(torch, cfg, deck, runs, seed, smi, "mesh-dp", mesh_devices=devs)
+    check(dp["engine"].mesh is not None and dp["engine"].mesh.size == len(devs),
+          "the engine did not take the frame-parallel mesh")
+    check(dp["timeline"] == slice_out["timeline"], "the frame-DP timeline differs from phase 4's")
+    check(dp["matched"] == slice_out["matched"], "the frame-DP assignments differ from phase 4's")
+    for name in ("fast", "orb", "table", "warp"):
+        check(dp["launches"][name] > 0, f"kernel {name} was never launched by the frame-DP run")
+
+    # (b): the exact run's index over a 1 x 2 ("frames", "index") mesh.
+    index = exact["engine"].index
+    n_slides, kps_per = index.pts.shape[0], index.pts.shape[1]
+    mesh = pmesh.Mesh(np.array(devs[:2], dtype=object).reshape(1, 2), ("frames", "index"))
+    shards = pmesh.shard_index(mesh, index)
+    idx = [i for i, _ in exact["matched"]]
+    want = [-1 if page is None else page for _, page in exact["matched"]]
+    frames = torch.from_numpy(np.stack([exact["frames"][i] for i in idx])).to("cuda")
+    _kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = pmesh.match_frames_mesh(frames, idx, shards, mesh=mesh, slide_hw=FRAME_HW, cfg=cfg)
+    torch.cuda.synchronize()
+    t_mesh = time.perf_counter() - t0
+    ip = dict(_kernels.launches)
+    got = res.slide.tolist()
+    diffs = [(i, a, b) for i, a, b in zip(idx, got, want) if a != b]
+    print(f"[mesh-index] {mesh}: {len(idx)} frames x {n_slides} slides in {t_mesh:.3f} s "
+          f"({len(idx) / t_mesh:.2f} frames/s, {smi}); kernel launches {ip}; "
+          f"{len(diffs)} differences from the exact run {diffs}")
+    check(not diffs, "index-parallel assignments differ from the exact run's")
+    check(ip["table"] == 2 * len(idx), f"expected {2 * len(idx)} shard tables, got {ip['table']}")
+    for name in ("fast", "orb", "warp"):
+        check(ip[name] > 0, f"kernel {name} was never launched by the index-parallel run")
+
+    # The gathered table against table.cu over all 500 slides, and one
+    # shard's launch against its plain version, on a matched frame's queries.
+    frame = frames[[i for i, w in enumerate(want) if w >= 0][0]].float()
+    query = features.extract_features(frame, cfg.orb).desc.contiguous()
+    gathered = pmesh.mesh_table(query, list(shards[0]))
+    full = hamming.match_table(query, index.desc_index, n_slides, kps_per)
+    torch.cuda.synchronize()
+    same = all(torch.equal(getattr(gathered, f), getattr(full, f))
+               for f in ("dist", "train", "valid", "slide_ids"))
+    print(f"[mesh-index] gathered table {tuple(gathered.dist.shape)} bit-equal to the "
+          f"{n_slides}-slide table: {same}")
+    check(same, "the gathered shard tables differ from the table over all slides")
+    sdi = shards[0, 0].desc_index
+    s_local = sdi.desc.shape[0] // kps_per
+    best, arg = cuda_table.match_table_scores(query, sdi.desc, sdi.valid, s_local, kps_per)
+    pbest, parg = cuda_table.match_table_scores_plain(query, sdi.desc, sdi.valid, s_local, kps_per)
+    torch.cuda.synchronize()
+    same = torch.equal(best, pbest) and torch.equal(arg, parg)
+    print(f"[K5c] query {tuple(query.shape)} x shard {s_local}x{kps_per}: best+arg bit-equal {same}")
+    check(same, "the shard table is not bit-equal to its plain version")
+    ms = cuda_ms({
+        "kernel": lambda: cuda_table.match_table_scores(query, sdi.desc, sdi.valid, s_local, kps_per),
+        "plain": lambda: cuda_table.match_table_scores_plain(query, sdi.desc, sdi.valid, s_local, kps_per),
+    })
+    q, n_idx = query.shape[0], s_local * kps_per
+    row = kernel_row(
+        "match_table_shard", "table.cu", "slideo_tpu/ops/hamming.py:293",
+        float((best - pbest).abs().max()), ms,
+        bound(n_idx * (256 + 1) + q * 256 + q * s_local * 8, 2 * q * n_idx * 256, "int8"),
+    )
+    print_row(row, smi)
+    return row, dp["launches"], ip
+
+
+def phase_fast_batch(torch, deck: np.ndarray, runs, smi: str) -> tuple[dict, dict]:
+    """K2 on the deck's 64 page atlases, then the stage profile. Returns
+    K2's kernel row and the profile run's launches."""
+    from slideo_tpu_torch import DEFAULT_CONFIG, _kernels
+    from slideo_tpu_torch.ops import cuda_fast, features
+    from slideo_tpu_torch.tools import profile_stages
+
+    cfg = DEFAULT_CONFIG
+    thr = cfg.orb.fast_threshold
+    dev = torch.device("cuda")
+    atlases = torch.stack([
+        features.build_pyramid(torch.from_numpy(p).to(dev).float(), cfg.orb) for p in deck
+    ])
+    k2 = cuda_fast.fast_score_map_batch(atlases, thr)
+    k1 = torch.stack([cuda_fast.fast_score_map(a, thr) for a in atlases])
+    plain = cuda_fast.fast_score_map_batch_plain(atlases, thr)
+    torch.cuda.synchronize()
+    err = float((k2 - plain).abs().max())
+    print(f"[K2] atlases {tuple(atlases.shape)} {atlases.dtype}: corners {int((k2 > 0).sum())}, "
+          f"bit-equal to {len(deck)} K1 launches {torch.equal(k2, k1)}, to the plain version "
+          f"{torch.equal(k2, plain)}")
+    check(torch.equal(k2, k1), "K2 is not bit-equal to per-frame K1 launches")
+    check(torch.equal(k2, plain), "K2 is not bit-equal to its plain version")
+    del k1, plain
+    ms = cuda_ms({
+        "kernel": lambda: cuda_fast.fast_score_map_batch(atlases, thr),
+        "k1": lambda: [cuda_fast.fast_score_map(a, thr) for a in atlases],
+        "plain": lambda: cuda_fast.fast_score_map_batch_plain(atlases, thr),
+    }, reps=3)
+    print(f"[time] fast_nms_batch x{len(deck)}: K2 {ms['kernel']:.4f} ms, {len(deck)} K1 launches "
+          f"{ms['k1']:.4f} ms, plain {ms['plain']:.4f} ms ({smi})")
+    n_px = atlases.numel()
+    row = kernel_row("fast_nms_batch", "fast.cu", "slideo_tpu/ops/pallas_fast.py:340", err, ms,
+                     bound(n_px * (2 + 4), n_px * (16 + 2 * 16 * 9 + 8), "f32"))
+    print_row(row, smi)
+    del atlases, k2
+
+    frames = np.stack([f for _, fs in runs for f in fs][:4 * 8])
+    _kernels.reset_launches()
+    torch.cuda.synchronize()
+    profile_stages.profile(deck, frames, 8, cfg, report=lambda line: print(f"{line} ({smi})"))
+    torch.cuda.synchronize()
+    launches = dict(_kernels.launches)
+    print(f"[profile] kernel launches {launches}")
+    for name in ("fast", "fast_batch", "orb", "table", "warp"):
+        check(launches[name] > 0, f"kernel {name} was never launched by the stage profile")
+    return row, launches
 
 
 def main() -> None:
@@ -559,6 +724,7 @@ def main() -> None:
 
     import torch
 
+    t_start = time.perf_counter()
     smi = phase_environment(torch)
     phase_build()
     rng = np.random.RandomState(args.seed)
@@ -568,16 +734,25 @@ def main() -> None:
     print(f"[data] deck {deck.shape} and {sum(len(f) for _, f in runs)} frames made in "
           f"{time.perf_counter() - t0:.2f} s (host)")
     rows = phase_kernels(torch, deck, runs[0][1][0], smi)
-    launches = phase_slice(torch, deck, runs, args.seed, smi)
-    del deck, runs
-    screen_row, screened_launches = phase_screened(torch, args.seed, smi)
-    rows.append(screen_row)
-    # Launches of both main-path runs: the exact-table path and the screened path.
+    slice_out = phase_slice(torch, deck, runs, args.seed, smi)
+    screen_row, screened_launches, exact = phase_screened(torch, args.seed, smi)
+    shard_row, dp_launches, ip_launches = phase_mesh(
+        torch, deck, runs, args.seed, smi, slice_out, exact)
+    del exact
+    k2_row, profile_launches = phase_fast_batch(torch, deck, runs, smi)
+    rows += [screen_row, shard_row, k2_row]
+    # Each kernel's launches over every path of this run; the table
+    # launches of the index-parallel step are K5 (c)'s.
+    paths = [slice_out["launches"], screened_launches, dp_launches, ip_launches, profile_launches]
+    counted = {name: sum(p[name] for p in paths) for name in paths[0]}
+    counted["table"] -= ip_launches["table"]
     by_name = {"fast_nms": "fast", "orb_describe": "orb", "match_table": "table",
-               "bilinear_sample": "warp", "screen_scores": "screen"}
+               "bilinear_sample": "warp", "screen_scores": "screen", "fast_nms_batch": "fast_batch"}
     for r in rows:
-        name = by_name[r["name"]]
-        r["launches"] = launches[name] + screened_launches[name]
+        r["launches"] = (ip_launches["table"] if r["name"] == "match_table_shard"
+                         else counted[by_name[r["name"]]])
+        check(r["launches"] > 0, f"kernel {r['name']} was launched by no path of this run")
+    print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s ({smi})")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

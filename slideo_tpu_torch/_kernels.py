@@ -8,9 +8,11 @@ sources and flags, so an edited source is rebuilt on first use and a stale
 library is never loaded. The build happens on the first call that needs a
 kernel, never at import: the CPU tests import every module.
 
-Each kernel's wrapper adds one to ``launches[name]`` right after it launched
-that kernel, and nowhere else, so a run can prove which kernels its main
-path went through.
+Each kernel's wrapper launches through ``launch``, which puts the operands'
+card current around the call and adds one to ``launches[name]`` right after
+the kernel launched, and nowhere else, so a run can prove which kernels its
+main path went through. The mesh (``parallel/mesh.py``) launches from several
+threads at once, so the counts and the first build are taken under a lock.
 """
 
 from __future__ import annotations
@@ -20,12 +22,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
 
 __all__ = [
-    "library", "launches", "reset_launches", "check_launch", "stream_of",
+    "library", "launches", "reset_launches", "launch", "check_launch",
     "require_cuda", "plain_or_raise",
 ]
 
@@ -39,6 +42,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # img, out, h, w, threshold, stream
     "slideo_fast_nms": (_P, _P, _I, _I, _F, _P),
+    # imgs, out, b, h, w, threshold, stream
+    "slideo_fast_nms_batch": (_P, _P, _I, _I, _I, _F, _P),
     # atlas, h, w, y0, x0, k, a_start, a_w, d_start, d_w, bins, out, stream
     "slideo_orb_describe": (_P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P),
     # query, q, desc, valid, n_cols, k_per_slide, slide_list, best, arg, stream
@@ -49,14 +54,18 @@ _SIGNATURES = {
     "slideo_bilinear_sample": (_P, _I, _I, _P, _P, _I, _P, _P),
 }
 
-launches: dict[str, int] = {"fast": 0, "orb": 0, "table": 0, "screen": 0, "warp": 0}
+launches: dict[str, int] = {
+    "fast": 0, "fast_batch": 0, "orb": 0, "table": 0, "screen": 0, "warp": 0,
+}
 
 _lib: ctypes.CDLL | None = None
+_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    with _lock:
+        for name in launches:
+            launches[name] = 0
 
 
 def _nvcc() -> str:
@@ -114,26 +123,35 @@ def _build() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built from csrc/ on first use."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(_build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(_build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
     return _lib
 
 
-def stream_of(t: torch.Tensor) -> int:
-    """Handle of PyTorch's current stream on ``t``'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+def launch(name: str, symbol: str, on: torch.Tensor, *args) -> None:
+    """Call the launcher ``symbol`` with ``args`` and the current stream of
+    ``on``'s device, with that device current: a launcher launches on the
+    calling thread's current device, whatever device its pointers live on.
+    Raises if it reported a CUDA error, else counts the launch under
+    ``name``."""
+    fn = getattr(library(), symbol)
+    with torch.cuda.device(on.device):
+        rc = fn(*args, torch.cuda.current_stream(on.device).cuda_stream)
+    check_launch(rc, name)
 
 
 def check_launch(rc: int, name: str) -> None:
     """Raise if a launcher reported a CUDA error; else count the launch."""
     if rc != 0:
         raise RuntimeError(f"CUDA kernel '{name}' failed to launch: cudaError {rc}")
-    launches[name] += 1
+    with _lock:
+        launches[name] += 1
 
 
 def require_cuda(t: torch.Tensor, what: str, dtype: torch.dtype, ndim: int) -> None:

@@ -1,13 +1,19 @@
 """End-to-end sync: slide deck + videos -> (video_ms -> page) timelines.
 
-Port of ``slideo_tpu/app/pipeline.py`` for the ORB engine on one device.
-The deck is indexed on the device once; sampled frames stream through in
+Port of ``slideo_tpu/app/pipeline.py`` for the ORB engine. The deck is
+indexed on the device once; sampled frames stream through in
 ``VideoConfig.batch_size`` batches, a dedup pass on thumbnails drops frames
 that did not change (reference lib.rs:205-209), and the changed ones are
-matched. The output keeps the reference's contract: a sentinel no-match
-record at the video end (lib.rs:182-189), sorted by time, consecutive
-duplicates dropped (lib.rs:229-244). Rows are written through ``app.db.Db``,
-whose schema and file are the JAX package's.
+matched, on one device or over a frame-parallel mesh of several
+(``parallel/mesh.py``). The output keeps the reference's contract: a
+sentinel no-match record at the video end (lib.rs:182-189), sorted by time,
+consecutive duplicates dropped (lib.rs:229-244). Rows are written through
+``app.db.Db``, whose schema and file are the JAX package's.
+
+In a multi-host run (``mesh.initialize_distributed``; or one process with
+``SLIDEO_MULTIHOST=1``) each host decodes and matches one contiguous block
+of the sampled frames, the hosts' records are gathered before the timeline
+is cleaned, and only rank 0 writes the database.
 
 ``match_video`` decodes the video (OpenCV, imported only there) and hands
 its samples to ``match_samples``, which takes any iterator of
@@ -17,6 +23,9 @@ decoder can drive the engine through it.
 
 from __future__ import annotations
 
+import contextlib
+import itertools
+import os
 import random
 import string
 from dataclasses import dataclass
@@ -30,6 +39,7 @@ from ..config import SlideoConfig
 from ..io import pdf as pdf_io
 from ..models import orb_matcher
 from ..ops import image as image_ops
+from ..parallel import mesh as mesh_mod
 from .db import Db, PdfExtractedPagesDir
 from .hashing import get_temp_path_key
 from .progress import ComposedProgressReporter, ProgressReporter, null_reporter
@@ -132,11 +142,20 @@ class MatchingEngine:
         pages: list[PdfPage],
         device: torch.device | str = "cuda",
         page_grays: np.ndarray | None = None,
+        mesh_devices: list[torch.device | str] | None = None,
     ):
         """Index the deck on ``device``.
 
         page_grays: the pages as a letterboxed [S, H, W] uint8 array, in
         page order; when None the page images are decoded from disk.
+        mesh_devices: the entries of a frame-parallel mesh (they may
+        repeat); two or more turn the mesh on and replicate the index on
+        each device. When None the engine runs on ``device`` alone, unless
+        the environment's ``SLIDEO_MESH`` is ``on``, ``device`` is CUDA and
+        more than one card is visible: then every visible card forms the
+        mesh (``pipeline.py:483-501``). The switch is off by default, where
+        the JAX package's is on, because this threaded mesh is slower than
+        one card on every workload measured so far (PERF.md).
         """
         if cfg.engine != "orb":
             raise NotImplementedError(f"engine {cfg.engine!r}: only 'orb' is ported")
@@ -158,6 +177,31 @@ class MatchingEngine:
             grays[c:c + self._BUILD_CHUNK] for c in range(0, len(pages), self._BUILD_CHUNK)
         )
         self.index = orb_matcher.build_slide_index_from_chunks(chunks, cfg, self.device)
+        self.mesh = _frame_mesh(self.device, mesh_devices)
+        self._replicas = (
+            None if self.mesh is None else mesh_mod.replicate_index(self.mesh, self.index)
+        )
+
+    def match_batch(
+        self, frames: torch.Tensor, frame_seeds: list[int]
+    ) -> orb_matcher.FrameMatch:
+        """Match a [n, H, W] batch on the engine's devices; fields come back
+        [n]. On a mesh the batch is padded to a multiple of the mesh size
+        with copies of the last frame under seed 0 (``pipeline.py:707-712``),
+        and their results are dropped."""
+        if self.mesh is None:
+            return orb_matcher.match_frames(
+                frames, frame_seeds, self.index, self.slide_hw, self.cfg
+            )
+        n = frames.shape[0]
+        pad = -n % self.mesh.size
+        if pad:
+            frames = torch.cat([frames, frames[-1:].expand(pad, -1, -1)])
+            frame_seeds = list(frame_seeds) + [0] * pad
+        res = mesh_mod.match_frames_sharded(
+            self.mesh, frames, frame_seeds, self._replicas, self.slide_hw, self.cfg
+        )
+        return orb_matcher.FrameMatch(*(f[:n] for f in res))
 
     def _dedup(
         self, frames: torch.Tensor, prev_small: torch.Tensor | None
@@ -195,6 +239,23 @@ class MatchingEngine:
         Db.load_partial_matchings; the caller's samples start after it.
         frames_total: the expected number of samples, for progress reports.
         """
+        return _clean_timeline(self._match_records(
+            samples, total_ms, total_frames, reporter, checkpoint, resume_state,
+            frames_total,
+        ))
+
+    def _match_records(
+        self,
+        samples: Iterable[tuple[int, float, np.ndarray]],
+        total_ms: int,
+        total_frames: int,
+        reporter: ProgressReporter,
+        checkpoint,
+        resume_state: tuple[list, int] | None,
+        frames_total: int,
+    ) -> list[Matching]:
+        """``match_samples`` before the timeline is cleaned: the sentinel
+        record first, then every matched frame's record in match order."""
         cfg = self.cfg
         results: list[Matching] = [
             Matching(video_ms=total_ms, video_frame_idx=total_frames, page=None)
@@ -241,10 +302,8 @@ class MatchingEngine:
             nonlocal pending
             while pending and (len(pending) >= bs or force):
                 chunk, pending = pending[:bs], pending[bs:]
-                res = orb_matcher.match_frames(
-                    torch.stack([f for _, f in chunk]),
-                    [s.frame_idx for s, _ in chunk],
-                    self.index, self.slide_hw, cfg,
+                res = self.match_batch(
+                    torch.stack([f for _, f in chunk]), [s.frame_idx for s, _ in chunk]
                 )
                 slides = res.slide.cpu().numpy()
                 for (s, _), slide in zip(chunk, slides):
@@ -274,15 +333,7 @@ class MatchingEngine:
         flush_matches(force=True)
         save_checkpoint()
         reporter(processed, max(frames_total, processed), "Finished!")
-
-        # Sort by time; drop consecutive duplicates (lib.rs:229-244).
-        results.sort(key=lambda m: m.video_ms)
-        cleaned: list[Matching] = []
-        for m in results:
-            if cleaned and cleaned[-1].page == m.page:
-                continue
-            cleaned.append(m)
-        return cleaned
+        return results
 
     def match_video(
         self,
@@ -291,25 +342,88 @@ class MatchingEngine:
         checkpoint=None,
         resume_state: tuple[list, int] | None = None,
     ) -> list[Matching]:
-        """Decode and match one video (see ``match_samples``)."""
+        """Decode and match one video (see ``match_samples``).
+
+        In a multi-host run (world size > 1, or ``SLIDEO_MULTIHOST=1``) this
+        host decodes only its block of the sampled frames
+        (``mesh.host_frame_shard``), without checkpoint or resume (hosts
+        would race on the DB), and every host's records are gathered before
+        the timeline is sorted and its consecutive duplicates dropped, so
+        every host returns the one-host timeline (``pipeline.py:595-613``,
+        ``:779-808``).
+        """
         from ..io.video import open_video_info, sampled_frames
 
         cfg = self.cfg
         info = open_video_info(video_path)
+        frames_total = info.frames_to_process(cfg.video.interval_s)
         start_after = resume_state[1] if resume_state is not None else -1
+        stop_after = None
+        multihost = mesh_mod.world_size() > 1 or os.environ.get("SLIDEO_MULTIHOST") == "1"
+        if multihost:
+            checkpoint = resume_state = None
+            stride = info.sample_stride(cfg.video.interval_s)
+            mine = mesh_mod.host_frame_shard(list(range(0, info.total_frames, stride)))
+            start_after = mine[0] - 1 if mine else info.total_frames
+            stop_after = mine[-1] if mine else -1
+            frames_total = max(len(mine), 1)
         frames = sampled_frames(
             video_path, cfg.video.interval_s, mode=cfg.video.decode_mode,
             start_after_frame=start_after,
         )
-        return self.match_samples(
-            ((sf.frame_idx, sf.time_s, sf.gray) for sf in frames),
-            total_ms=int(info.total_time_s * 1000),
-            total_frames=info.total_frames,
-            reporter=reporter,
-            checkpoint=checkpoint,
-            resume_state=resume_state,
-            frames_total=info.frames_to_process(cfg.video.interval_s),
-        )
+        with contextlib.closing(frames):
+            samples = (
+                (sf.frame_idx, sf.time_s, sf.gray)
+                for sf in itertools.takewhile(
+                    lambda sf: stop_after is None or sf.frame_idx <= stop_after, frames
+                )
+            )
+            results = self._match_records(
+                samples, int(info.total_time_s * 1000), info.total_frames, reporter,
+                checkpoint, resume_state, frames_total,
+            )
+        if multihost:
+            results[1:] = self._gather_hosts(results[1:])
+        return _clean_timeline(results)
+
+    def _gather_hosts(self, records: list[Matching]) -> list[Matching]:
+        """Every host's records (all but the sentinel), host by host
+        (``mesh.gather_host_matchings``); pages travel as their index."""
+        pos = {id(p): i for i, p in enumerate(self.pages)}
+        rows = [
+            (m.video_frame_idx, m.video_ms, pos[id(m.page)] if m.page is not None else -1)
+            for m in records
+        ]
+        return [
+            Matching(ms, frame_idx, self.pages[page] if page >= 0 else None)
+            for frame_idx, ms, page in mesh_mod.gather_host_matchings(rows)
+        ]
+
+
+def _frame_mesh(
+    device: torch.device, mesh_devices: list[torch.device | str] | None
+) -> mesh_mod.Mesh | None:
+    """The engine's frame-parallel mesh, or None for one device."""
+    if mesh_devices is None:
+        if (
+            device.type != "cuda"
+            or torch.cuda.device_count() <= 1
+            or os.environ.get("SLIDEO_MESH", "off") != "on"
+        ):
+            return None
+        return mesh_mod.make_mesh()
+    return mesh_mod.make_mesh(mesh_devices) if len(mesh_devices) >= 2 else None
+
+
+def _clean_timeline(results: list[Matching]) -> list[Matching]:
+    """Sort by time; drop consecutive duplicates (lib.rs:229-244)."""
+    results = sorted(results, key=lambda m: m.video_ms)
+    cleaned: list[Matching] = []
+    for m in results:
+        if cleaned and cleaned[-1].page == m.page:
+            continue
+        cleaned.append(m)
+    return cleaned
 
 
 def sync(
@@ -319,10 +433,13 @@ def sync(
     cfg: SlideoConfig,
     reporter: ProgressReporter = null_reporter,
     device: torch.device | str = "cuda",
+    mesh_devices: list[torch.device | str] | None = None,
 ) -> None:
     """Match every video against the deck and persist the timelines,
-    resuming a video from its checkpoint rows where it has them."""
-    engine = MatchingEngine(cfg, pages, device=device)
+    resuming a video from its checkpoint rows where it has them. In a
+    multi-host run every host holds the merged timeline and only rank 0
+    writes it (``pipeline.py:849-852``)."""
+    engine = MatchingEngine(cfg, pages, device=device, mesh_devices=mesh_devices)
     composed = ComposedProgressReporter(reporter)
     nested = [composed.create_nested() for _ in videos]
     for (video_path, video_hash), video_reporter in zip(videos, nested):
@@ -342,4 +459,5 @@ def sync(
             )
             for m in matchings
         ]
-        db.finalize_video_matchings(video_hash, rows)
+        if mesh_mod.rank() == 0:
+            db.finalize_video_matchings(video_hash, rows)

@@ -1,4 +1,4 @@
-// K1: FAST-9/16 corner score + 3x3 non-maximum suppression over a bf16 atlas.
+// K1 and K2: FAST-9/16 corner score + 3x3 non-maximum suppression over a bf16 atlas.
 //
 // Replaces slideo_tpu/ops/pallas_fast.py:fast_scores_pallas (bodies _kernel
 // and _compute_chunk), which streams row bands of the pyramid atlas through
@@ -18,6 +18,13 @@
 // run from shared memory and registers. The TPU kernel's compass pretest
 // (sparse_skip) is not ported: it only skips work, and the tile form has
 // no per-chunk grid step for it to skip.
+//
+// K2 (slideo_fast_nms_batch) replaces slideo_tpu/ops/pallas_fast.py:
+// fast_scores_pallas_batch, K1 over a [B, H, W] batch in one launch: the
+// same kernel with a third grid dimension, blockIdx.z selecting the frame
+// (64-bit frame offsets: a 64-frame 1080p atlas batch is 477 M pixels), so
+// each frame's map is bit-equal to K1's. Bound: the same per-pixel work,
+// B times; one launch instead of B saves B - 1 launch overheads.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -63,6 +70,9 @@ __global__ void fast_nms_kernel(const __nv_bfloat16* __restrict__ img,
                                 float threshold) {
   __shared__ float px[TH + 2 * HALO][TW + 2 * HALO];
   __shared__ float sc[TH + 2][TW + 2];
+  const int64_t frame = static_cast<int64_t>(blockIdx.z) * h * w;
+  img += frame;
+  out += frame;
   const int x0 = blockIdx.x * TW;
   const int y0 = blockIdx.y * TH;
   const int tid = threadIdx.y * TW + threadIdx.x;
@@ -111,6 +121,16 @@ extern "C" int slideo_fast_nms(const void* img, void* out, int h, int w,
   dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH);
   fast_nms_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(img), static_cast<float*>(out), h, w,
+      threshold);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int slideo_fast_nms_batch(const void* imgs, void* out, int b, int h,
+                                     int w, float threshold, void* stream) {
+  dim3 block(TW, TH);
+  dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, b);
+  fast_nms_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(imgs), static_cast<float*>(out), h, w,
       threshold);
   return static_cast<int>(cudaGetLastError());
 }

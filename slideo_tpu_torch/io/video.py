@@ -38,6 +38,10 @@ class VideoInfo:
     def frames_to_process(self, interval_s: float) -> int:
         return int(self.total_time_s / interval_s)
 
+    def sample_stride(self, interval_s: float) -> int:
+        """floor(fps * interval): a frame is sampled iff idx % stride == 0."""
+        return max(int(self.fps * interval_s), 1)
+
 
 @dataclass
 class SampledFrame:

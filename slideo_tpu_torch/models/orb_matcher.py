@@ -84,11 +84,11 @@ def build_slide_index(slide_grays: np.ndarray, cfg: SlideoConfig, device) -> Sli
 
 def slide_index_from_numpy(
     desc: np.ndarray, valid: np.ndarray, pts: np.ndarray, smalls: np.ndarray,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> SlideIndex:
-    """The port's SlideIndex from the JAX package's SlideIndex arrays as
-    numpy: desc_index.desc [S*K, D] int8, desc_index.valid [S*K] bool,
-    pts [S, K, 2], smalls [S, hs, ws]."""
+    """The port's SlideIndex on ``device`` from the JAX package's SlideIndex
+    arrays as numpy: desc_index.desc [S*K, D] int8, desc_index.valid [S*K]
+    bool, pts [S, K, 2], smalls [S, hs, ws]."""
     s, k = pts.shape[0], pts.shape[1]
     t = lambda a: torch.from_numpy(np.array(a)).to(device)
     index = hamming.build_index(

@@ -246,10 +246,10 @@ def orb_describe(
     if k == 0:
         return desc, bins
     ha, wa = atlas.shape
-    rc = _kernels.library().slideo_orb_describe(
+    _kernels.launch(
+        "orb", "slideo_orb_describe", atlas,
         atlas.data_ptr(), ha, wa, y0.data_ptr(), x0.data_ptr(), k,
         a_start.data_ptr(), a_w.data_ptr(), d_start.data_ptr(), d_w.data_ptr(),
-        bins.data_ptr(), desc.data_ptr(), _kernels.stream_of(atlas),
+        bins.data_ptr(), desc.data_ptr(),
     )
-    _kernels.check_launch(rc, "orb")
     return desc, bins

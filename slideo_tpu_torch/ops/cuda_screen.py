@@ -68,9 +68,9 @@ def screen_scores(
     best = torch.empty((r, n_slides), dtype=torch.int32, device=query.device)
     if r == 0 or n_slides == 0:
         return best
-    rc = _kernels.library().slideo_screen(
+    _kernels.launch(
+        "screen", "slideo_screen", query,
         query.data_ptr(), r, desc.data_ptr(), valid.data_ptr(), n_slides,
-        k_per_slide, best.data_ptr(), _kernels.stream_of(query),
+        k_per_slide, best.data_ptr(),
     )
-    _kernels.check_launch(rc, "screen")
     return best

@@ -79,10 +79,9 @@ def match_table_scores(
     arg = torch.empty((q, n_cols), dtype=torch.int32, device=query.device)
     if q == 0 or n_cols == 0:
         return best, arg
-    rc = _kernels.library().slideo_match_table(
+    _kernels.launch(
+        "table", "slideo_match_table", query,
         query.data_ptr(), q, desc.data_ptr(), valid.data_ptr(), n_cols,
         k_per_slide, list_ptr, best.data_ptr(), arg.data_ptr(),
-        _kernels.stream_of(query),
     )
-    _kernels.check_launch(rc, "table")
     return best, arg

@@ -35,9 +35,8 @@ def bilinear_sample(img: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor) -> to
     n = xs.numel()
     if n == 0:
         return out
-    rc = _kernels.library().slideo_bilinear_sample(
+    _kernels.launch(
+        "warp", "slideo_bilinear_sample", img,
         img.data_ptr(), h, w, xs.data_ptr(), ys.data_ptr(), n, out.data_ptr(),
-        _kernels.stream_of(img),
     )
-    _kernels.check_launch(rc, "warp")
     return out

@@ -1,8 +1,8 @@
 """FAST-9/16 corner scores + 3x3 NMS: the plain PyTorch version.
 
 Port of ``slideo_tpu/ops/fast.py``. ``nms3x3(fast_scores(...))`` is the plain
-version of kernel K1 (csrc/fast.cu), which ``cuda_fast.fast_score_map``
-launches. The score is OpenCV's FAST_SCORE:
+version of kernels K1 and K2 (csrc/fast.cu, launched by ``cuda_fast``).
+The score is OpenCV's FAST_SCORE:
 ``max(max_s min_{9-arc}(tap - c), -min_s max_{9-arc}(tap - c))`` with each
 ``tap - c`` rounded to bfloat16 (config.OrbConfig.atlas_bf16), zero unless
 ``> threshold``, and zero on the 3 px image ring.

@@ -256,7 +256,8 @@ def test_screened_stage2_and_cascade_with_jax_draws(deck100):
     s, k = ji.pts.shape[0], ji.pts.shape[1]
     di = ji.desc_index
     ti = tom.slide_index_from_numpy(
-        np.asarray(di.desc), np.asarray(di.valid), np.asarray(ji.pts), np.asarray(ji.smalls)
+        np.asarray(di.desc), np.asarray(di.valid), np.asarray(ji.pts), np.asarray(ji.smalls),
+        device="cpu",
     )
     meta = jfeat.pyramid_meta(*HW, cfg.orb)
     feats, qdescs = [], []

@@ -6,8 +6,9 @@
 2. Port ``match_frames`` and JAX ``match_frames`` assign the same slides.
 3. Port ``sync`` and JAX ``pipeline.sync`` write the same videos_mapping
    rows (the fixture of test_pipeline.py).
-4. The port imports and runs its slice, exact and screened, without
-   importing jax, cv2 or anything of the JAX package.
+4. The port imports and runs its slice, exact, screened and on a
+   frame-parallel mesh, and imports its mesh and stage-profile modules,
+   without importing jax, cv2 or anything of the JAX package.
 """
 
 from __future__ import annotations
@@ -65,7 +66,7 @@ def test_cascade_from_jax_index_and_features(deck, tcfg):
     s, k = ji.pts.shape[0], ji.pts.shape[1]
     ti = tom.slide_index_from_numpy(
         np.asarray(ji.desc_index.desc), np.asarray(ji.desc_index.valid),
-        np.asarray(ji.pts), np.asarray(ji.smalls),
+        np.asarray(ji.pts), np.asarray(ji.smalls), device="cpu",
     )
     meta = jfeat.pyramid_meta(*HW, cfg.orb)
     for seed in range(frames.shape[0]):
@@ -145,6 +146,8 @@ import torch
 from slideo_tpu_torch import DEFAULT_CONFIG
 from slideo_tpu_torch.app.pipeline import MatchingEngine, PdfPage
 from slideo_tpu_torch.ops import cuda_fast, cuda_orb, cuda_table, cuda_warp  # noqa: F401
+from slideo_tpu_torch.parallel import mesh  # noqa: F401
+from slideo_tpu_torch.tools import profile_stages  # noqa: F401
 
 torch.set_num_threads(1)
 cfg = dataclasses.replace(
@@ -170,10 +173,10 @@ f1, f0 = frame_of(pages_np[1]), frame_of(pages_np[0])
 samples = [(0, 0.0, f1), (5, 5.0, f1), (10, 10.0, f0)]
 # A 2-slide deck takes the exact table; with screen_above_slides=1 it takes
 # the screened batch path (stage-1 screening, then the table over the
-# candidates).
+# candidates); the exact path also runs on a frame-parallel mesh of two.
 screened = dataclasses.replace(cfg, match=dataclasses.replace(cfg.match, screen_above_slides=1))
-for c in (cfg, screened):
-    engine = MatchingEngine(c, pages, device="cpu", page_grays=pages_np)
+for c, mesh_devices in ((cfg, None), (screened, None), (cfg, ["cpu", "cpu"])):
+    engine = MatchingEngine(c, pages, device="cpu", page_grays=pages_np, mesh_devices=mesh_devices)
     out = engine.match_samples(samples, total_ms=15000, total_frames=15)
     assert [m.page.page_nr if m.page else None for m in out] == [2, 1, None], out
 bad = sorted(
