@@ -14,7 +14,10 @@ Phases:
    slideo_tpu_torch/_build/ (the library is reused while the sources are
    unchanged).
 3. Each hand-written kernel against its plain PyTorch version on the card,
-   at the shapes the match path gives it, with CUDA-event timings.
+   at the shapes the match path gives it: K1, K3+K4, K5 (bit-equal at Q=768
+   and Q=2048 x 64 slides, and on an adversarial index made to break its
+   tie rule, over all slides and over a slide list with repeated ids), K6
+   (10 candidates at stride 2, one mapping partly outside the frame).
 4. The exact-table path: a synthetic 64-slide 1080x1920 deck indexed by
    ``MatchingEngine``, 88 sampled 1080p frames (runs of warped slides,
    noise, blank) streamed through ``match_samples``, the timeline written
@@ -25,7 +28,8 @@ Phases:
    revealed line by line into 5 slides) and 80 sampled frames (runs of
    adjacent family members, noise, blank). It holds K5 mode (b) bit-equal
    to its plain version on 64 frames' stacked query prefixes and K5 mode
-   (a) over a candidate list bit-equal in both query buckets, checks the
+   (a) bit-equal over a frame's 16 listed slides in both query buckets and
+   over all 500 slides at Q=2048 (each timed), checks the
    timeline through the port's ``Db``, checks that the screened run
    assigns every matched frame the slide the exact run (screening off)
    assigns, and that the screened run launched ``screen`` and ``table``.
@@ -40,20 +44,30 @@ Phases:
    gathered table is bit-equal to the table over all 500 slides, the
    assignments equal the exact run's, and one shard's table launch (the
    counterpart of the TPU table kernel's non-transposed mode, K5 (c)) is
-   timed against its plain version.
+   held bit-equal to and timed against its plain version.
 7. K2: the batched FAST kernel on the 64 page atlases of phase 4's deck
    ([64, 3880, 1920] bf16) bit-equal to 64 K1 launches and to its plain
    version, timed against both; then the stage profile
    (``slideo_tpu_torch.tools.profile_stages``, batch 8) on that deck and
    the first 32 frames of phase 4's stream.
 
+``python3 chip_smoke.py --profiler-check`` runs phases 1 and 2 and then
+only the cross-check of the device-time method: K5's graph-replay device
+ms against ``torch.profiler``'s kernel durations at Q=768 x 64 slides. It
+is a separate run because an attached profiler slows every later launch
+of the process.
+
 Every path (phases 4, 5 screened, 6a, 6b, 7's profile) runs with the
 launch counts set to 0 just before it and read just after; a kernel's
 ``launches`` is its count summed over them, where the table launches of
-6b are K5 (c)'s and the others K5 (a)'s. Prints the kernel table as one
-JSON line (each kernel's time, its plain version's, its bound on an H100
-SXM from this run's shapes and, where one PyTorch call computes the same
-function, that call's time), then the nvidia-smi line, then
+6b are K5 (c)'s and the others K5 (a)'s. Every kernel has two times: call
+ms (``cuda_ms``: one wrapper call between two CUDA events, the wrapper's
+host work included) and device ms (``device_ms``: N calls captured in a
+CUDA graph and replayed between two events, divided by N), and so has the
+library call beside it where there is one. Prints the kernel table as one
+JSON line (each kernel's times, its plain version's call time, its bound
+on an H100 SXM from this run's shapes and, where one PyTorch call computes
+the same function, that call's times), then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line.
 Any failed check raises and exits nonzero; without a CUDA device it exits
 nonzero before printing any result. Imports neither jax nor cv2, and
@@ -65,6 +79,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -93,8 +108,9 @@ def check(cond: bool, msg: str) -> None:
 
 
 def cuda_ms(fns: dict, reps: int = 10) -> dict:
-    """Median device time (ms) of each callable, measured in turns with CUDA
-    events after a warm-up call of each."""
+    """Median call time (ms) of each callable: one call between two CUDA
+    events, so the wrapper's host work (checks, allocation, the ctypes call)
+    is inside the window; in turns, after a warm-up call of each."""
     import torch
 
     for fn in fns.values():
@@ -113,6 +129,79 @@ def cuda_ms(fns: dict, reps: int = 10) -> dict:
     return {name: float(np.median(t)) for name, t in times.items()}
 
 
+def device_ms(fns: dict, call_ms: dict, reps: int = 7, window_ms: float = 2.0,
+              max_n: int = 500) -> dict:
+    """Median device time (ms) of one call of each callable, without the
+    host's share: N calls captured in one CUDA graph, the graph replayed
+    between two CUDA events, the time divided by N; in turns, after a
+    warm-up replay of each. N starts at 20 (fewer for a callable whose call
+    takes over 1 ms, ``call_ms``) and grows until a replay lasts
+    ``window_ms``, up to ``max_n``. Every callable must be capturable: no
+    host sync, no pageable host-to-device copy."""
+    import torch
+
+    def capture(fn, n: int):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(n):
+                fn()
+        graph.replay()
+        return graph
+
+    def replay_ms(graph) -> float:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    graphs = {}
+    for name, fn in fns.items():
+        n = max(1, min(20, math.ceil(20.0 / call_ms[name])))
+        graph = capture(fn, n)
+        per = replay_ms(graph) / n
+        if per * n < window_ms and n < max_n:
+            n = min(max_n, math.ceil(window_ms / max(per, 1e-6)))
+            del graph
+            graph = capture(fn, n)
+        graphs[name] = (graph, n)
+    torch.cuda.synchronize()
+    times = {name: [] for name in fns}
+    for _ in range(reps):
+        for name, (graph, n) in graphs.items():
+            times[name].append(replay_ms(graph) / n)
+    del graphs
+    return {name: float(np.median(t)) for name, t in times.items()}
+
+
+def profiler_device_ms(fn, kernel: str, n: int = 20) -> float | None:
+    """Mean device time (ms) of the kernels whose name holds ``kernel`` in
+    ``torch.profiler``'s trace of ``n`` calls, or None when the profiler
+    records no device time for them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for e in prof.key_averages():
+        if kernel in e.key:
+            total += getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+            count += e.count
+    return total / count / 1e3 if count and total else None
+
+
 def bound(nbytes: float, ops: float, kind: str) -> dict:
     """bound_ms and bound_by of a kernel that must move ``nbytes`` and do
     ``ops`` operations of type ``kind``."""
@@ -121,11 +210,15 @@ def bound(nbytes: float, ops: float, kind: str) -> dict:
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def kernel_row(name: str, source: str, replaces: str, err: float, ms: dict,
-               cost: dict, library_ms: float | None = None) -> dict:
+def kernel_row(name: str, source: str, replaces: str, err: float, ms: dict, dev: dict,
+               cost: dict) -> dict:
+    """A kernel's line of the JSON table: ``ms`` holds the call ms of the
+    kernel, its plain version and the library call (if any), ``dev`` the
+    device ms of the kernel and the library call."""
     return dict(name=name, route="cuda", source=f"slideo_tpu_torch/csrc/{source}",
                 replaces=replaces, launches=0, max_abs_err=err, ms=ms["kernel"],
-                plain_ms=ms["plain"], **cost, library_ms=library_ms)
+                device_ms=dev["kernel"], plain_ms=ms["plain"], **cost,
+                library_ms=ms.get("library"), library_device_ms=dev.get("library"))
 
 
 def make_deck(rng: np.random.RandomState, n: int) -> np.ndarray:
@@ -156,6 +249,68 @@ def make_deck(rng: np.random.RandomState, n: int) -> np.ndarray:
             fy, fx = rng.randint(200, h - tex.shape[0] - 10), rng.randint(100, w - tex.shape[1] - 10)
             page[fy:fy + tex.shape[0], fx:fx + tex.shape[1]] = tex
     return deck
+
+
+def adversarial_table(seed: int, q: int = 1000, s: int = 24, k: int = 2048):
+    """An index and queries made to break K5's tie rule (the first slot
+    attaining the best score wins): (query [q, 256], desc [s, k, 256] int8
+    +-1, valid [s, k] bool, slide list [C] int32).
+
+    Every 7th query row is all zero, so every valid slot of every slide ties
+    at 0. Query rows 3, 10, 17, ... are copied into several slots of one
+    slide: the same lane's two slots, two lanes of a quad, the two slot
+    halves of a 64-slot tile, a tile boundary, far tiles, slots listed in
+    descending order; every third such copy marks the first slot invalid.
+    Slide 1 has no valid slot, slide 2 none in its first half. q need not
+    be a multiple of the 64-query tile (1000 is not), and the slide list
+    repeats ids and lists the slide without a valid slot. ``tests`` holds
+    the plain table on this index bit-equal to the JAX package's."""
+    rng = np.random.RandomState(seed)
+    desc = np.where(rng.rand(s, k, 256) > 0.5, 1, -1).astype(np.int8)
+    valid = rng.rand(s, k) > 0.2
+    query = np.where(rng.rand(q, 256) > 0.5, 1, -1).astype(np.int8)
+    query[::7] = 0
+    groups = [(0, 1), (2, 4), (8, 40), (31, 32), (63, 64), (5, 133, k - 1),
+              (k - 1, k - 2), (100, 37), (k // 2 + 3, k // 2 + 2, 6)]
+    for n, r in enumerate(range(3, q, 7)):
+        sl = (5 * r) % s
+        sl = 0 if sl == 1 else sl
+        slots = list(groups[n % len(groups)])
+        desc[sl, slots] = query[r]
+        valid[sl, slots] = True
+        if n % 3 == 2:
+            valid[sl, slots[0]] = False
+    valid[1] = False
+    valid[2, :k // 2] = False
+    cand = np.array([3, 1, 3, 0, 2, 2, s - 1, 1, 5, 3], np.int32) % s
+    return query, desc, valid, cand
+
+
+def adversarial_table_case(torch, dev, seed: int):
+    """``adversarial_table`` on the card: (query, DescriptorIndex, S, K,
+    slide list)."""
+    from slideo_tpu_torch.ops import hamming
+
+    query, desc, valid, cand = adversarial_table(seed)
+    di = hamming.build_index(torch.from_numpy(desc).to(dev), torch.from_numpy(valid).to(dev))
+    return (torch.from_numpy(query).to(dev), di, desc.shape[0], desc.shape[1],
+            torch.from_numpy(cand).to(dev))
+
+
+def verify_transforms(torch, dev, t: int, seed: int = 7):
+    """``t`` similarity transforms (full-res slide -> frame coords) like the
+    ones RANSAC hands verification: rotation up to 3 degrees, scale 0.9-1.0,
+    shifts up to 10 px; the last is shifted 700 px right, so part of its
+    grid maps outside the frame."""
+    from slideo_tpu_torch.ops import ransac
+
+    rng = np.random.RandomState(seed)
+    th = np.deg2rad(rng.uniform(-3, 3, t))
+    sc = rng.uniform(0.9, 1.0, t)
+    shift = rng.uniform(-10, 10, (2, t))
+    shift[0, -1] = 700.0
+    fields = (sc * np.cos(th), sc * np.sin(th), shift[0], shift[1])
+    return ransac.Similarity(*(torch.from_numpy(f.astype(np.float32)).to(dev) for f in fields))
 
 
 def warp(page: np.ndarray, rng: np.random.RandomState) -> np.ndarray:
@@ -210,7 +365,7 @@ def phase_kernels(torch, deck: np.ndarray, frame: np.ndarray, smi: str) -> list[
     """Each kernel against its plain version at main-path shapes."""
     from slideo_tpu_torch import DEFAULT_CONFIG
     from slideo_tpu_torch.models import orb_matcher
-    from slideo_tpu_torch.ops import cuda_fast, cuda_orb, cuda_table, cuda_warp, features, image
+    from slideo_tpu_torch.ops import cuda_fast, cuda_orb, cuda_table, cuda_warp, features, image, verify
 
     cfg = DEFAULT_CONFIG
     dev = torch.device("cuda")
@@ -225,15 +380,14 @@ def phase_kernels(torch, deck: np.ndarray, frame: np.ndarray, smi: str) -> list[
     print(f"[K1] atlas {tuple(atlas.shape)} {atlas.dtype}: corners {int((got > 0).sum())}, "
           f"bit-equal {torch.equal(got, want)}, max_abs_err {err}")
     check(torch.equal(got, want), "K1 FAST kernel is not bit-equal to its plain version")
-    ms = cuda_ms({
-        "kernel": lambda: cuda_fast.fast_score_map(atlas, cfg.orb.fast_threshold),
-        "plain": lambda: cuda_fast.fast_score_map_plain(atlas, cfg.orb.fast_threshold),
-    })
+    k1 = lambda: cuda_fast.fast_score_map(atlas, cfg.orb.fast_threshold)  # noqa: E731
+    ms = cuda_ms({"kernel": k1, "plain": lambda: cuda_fast.fast_score_map_plain(atlas, cfg.orb.fast_threshold)})
+    dev_ms = device_ms({"kernel": k1}, ms)
     # Reads the bf16 atlas once, writes the f32 map; per pixel 16 circle
     # differences, 2 x 16 x 9 arc min/max and 8 NMS compares.
     n_px = atlas.numel()
     rows.append(kernel_row("fast_nms", "fast.cu", "slideo_tpu/ops/pallas_fast.py:286", err, ms,
-                           bound(n_px * (2 + 4), n_px * (16 + 2 * 16 * 9 + 8), "f32")))
+                           dev_ms, bound(n_px * (2 + 4), n_px * (16 + 2 * 16 * 9 + 8), "f32")))
 
     # K3+K4: describe the 2048 keypoint slots of a slide.
     slide_atlas = features.build_pyramid(torch.from_numpy(deck[0]).to(dev).float(), cfg.orb)
@@ -261,6 +415,7 @@ def phase_kernels(torch, deck: np.ndarray, frame: np.ndarray, smi: str) -> list[
         "kernel": lambda: cuda_orb.orb_describe(slide_atlas, y0, x0),
         "plain": lambda: cuda_orb.orb_describe_plain(slide_atlas, y0, x0),
     })
+    dev_ms = device_ms({"kernel": lambda: cuda_orb.orb_describe(slide_atlas, y0, x0)}, ms)
     # Reads the atlas pixels the 63 x 63 patches cover, writes 256 bits and a
     # bin per keypoint; per keypoint ~4 ops per patch pixel for the moments
     # and 512 samples of 64 multiply-adds for the bits.
@@ -270,7 +425,7 @@ def phase_kernels(torch, deck: np.ndarray, frame: np.ndarray, smi: str) -> list[
     covered = int(torch.nn.functional.max_pool2d(marks, 63, stride=1).sum())
     rows.append(kernel_row(
         "orb_describe", "orb.cu", "slideo_tpu/ops/pallas_orb.py:330",
-        float((desc.float() - pdesc.float()).abs().max()), ms,
+        float((desc.float() - pdesc.float()).abs().max()), ms, dev_ms,
         bound(covered * 2 + k * (256 + 4 + 8), k * (4 * 63 * 63 + 512 * 64 * 2), "f32"),
     ))
 
@@ -282,83 +437,143 @@ def phase_kernels(torch, deck: np.ndarray, frame: np.ndarray, smi: str) -> list[
     fkps = features.detect_pyramid(atlas, fmeta, cfg.orb)
     di = index.desc_index
     n_slides, kps_per = index.pts.shape[0], index.pts.shape[1]
-    k5_err, k5_ms = 0.0, {}
+    k5_err, k5_ms, k5_dev = 0.0, {}, {}
     for q in (768, cfg.orb.max_keypoints):
         query = features.describe(atlas, fmeta, fkps, q, cfg.orb).desc.contiguous()
-        best, arg = cuda_table.match_table_scores(query, di.desc, di.valid, n_slides, kps_per)
-        pbest, parg = cuda_table.match_table_scores_plain(query, di.desc, di.valid, n_slides, kps_per)
-        torch.cuda.synchronize()
-        same = torch.equal(best, pbest) and torch.equal(arg, parg)
-        print(f"[K5] query {tuple(query.shape)} x index {n_slides}x{kps_per}: best+arg bit-equal {same}")
-        check(same, f"K5 table kernel at Q={q} is not bit-equal to its plain version")
-        k5_err = max(k5_err, float((best - pbest).abs().max()))
-        k5_ms[q] = cuda_ms({
-            "kernel": lambda: cuda_table.match_table_scores(query, di.desc, di.valid, n_slides, kps_per),
-            "plain": lambda: cuda_table.match_table_scores_plain(query, di.desc, di.valid, n_slides, kps_per),
-        })
-        print(f"[time] match_table Q={q}: kernel {k5_ms[q]['kernel']:.4f} ms, "
-              f"plain {k5_ms[q]['plain']:.4f} ms ({smi})")
+        k5_err = max(k5_err, check_table(torch, f"Q={q} x {n_slides} slides", query, di, n_slides, kps_per))
+        k5_ms[q], k5_dev[q] = time_table(torch, f"Q={q} x {n_slides} slides", query, di, n_slides,
+                                         kps_per, None, smi)
+        if q == 768:
+            # The int8 product alone (torch._int_mm, no mask, no max /
+            # argmax): informational, not a library_ms.
+            int_mm = {"int_mm": lambda: torch._int_mm(query, di.desc.T)}
+            mm = device_ms(int_mm, cuda_ms(int_mm, reps=3))
+            print(f"[time] torch._int_mm [{q}, 256] x [256, {n_slides * kps_per}]: device "
+                  f"{mm['int_mm']:.4f} ms ({smi})")
     # Q=768: reads the index and the queries once, writes best + arg.
     n_idx = n_slides * kps_per
     rows.append(kernel_row(
         "match_table", "table.cu", "slideo_tpu/ops/pallas_table.py:143", k5_err, k5_ms[768],
-        bound(n_idx * (256 + 1) + 768 * 256 + 768 * n_slides * 8,
-              2 * 768 * n_idx * 256, "int8"),
-    ))
-    for q in k5_ms:
-        b = bound(n_idx * (256 + 1) + q * 256 + q * n_slides * 8, 2 * q * n_idx * 256, "int8")
-        print(f"[bound] match_table Q={q}: {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        k5_dev[768], table_bound(768, n_slides, kps_per)))
+    # The tie rule on an adversarial index, over all slides and a slide list.
+    query, adv, n_adv, k_adv, cand = adversarial_table_case(torch, dev, seed=3)
+    check_table(torch, "adversarial", query, adv, n_adv, k_adv)
+    check_table(torch, "adversarial, slide list", query, adv, n_adv, k_adv, cand)
 
-    # K6: verification sampling, 10 candidates x (130 x 231) points.
-    small = image.to_small_image(atlas[:FRAME_HW[0], :FRAME_HW[1]].float()).contiguous()
+    # K6: verification sampling of a 1080p frame's thumbnail, 10 candidates
+    # on the stride-2 grid of 1080p slides' thumbnails (the main path's
+    # shapes: 10 x 30,030 points); the last candidate maps partly outside.
+    small = image.to_small_image(torch.from_numpy(frame).to(dev).float()).contiguous()
     hs, ws = small.shape
-    g = torch.Generator(device=dev).manual_seed(7)
-    ii = torch.arange(0, hs, 2, device=dev, dtype=torch.float32)
-    jj = torch.arange(0, ws, 2, device=dev, dtype=torch.float32)
-    gy, gx = torch.meshgrid(ii, jj, indexing="ij")
-    t = 10
-    th = (torch.rand(t, 1, 1, generator=g, device=dev) - 0.5) * 0.1
-    sc = 0.9 + 0.1 * torch.rand(t, 1, 1, generator=g, device=dev)
-    sh = (torch.rand(t, 2, 1, 1, generator=g, device=dev) - 0.5) * 20
-    xs = (sc * (torch.cos(th) * gx - torch.sin(th) * gy) + sh[:, 0]).reshape(t, -1).contiguous()
-    ys = (sc * (torch.sin(th) * gx + torch.cos(th) * gy) + sh[:, 1]).reshape(t, -1).contiguous()
-    got = cuda_warp.bilinear_sample(small, xs, ys)
-    want = cuda_warp.bilinear_sample_plain(small, xs, ys)
+    grid = verify.sample_grid((hs, ws), FRAME_HW, FRAME_HW, cfg.video.small_image_area,
+                              cfg.match.verify_stride)
+    tf = verify_transforms(torch, dev, 10)
+    got = cuda_warp.warp_sample(small, tf, grid)
+    want = verify.warp_sample_plain(small, tf, grid)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
-    print(f"[K6] image {tuple(small.shape)}, points {tuple(xs.shape)}: max_abs_err {err}")
+    n_pt = got.numel()
+    print(f"[K6] image {tuple(small.shape)}, {got.shape[0]} candidates x {grid.out_h}x{grid.out_w} "
+          f"points: max_abs_err {err}, {int((got != want).sum())} of {n_pt} points differ, "
+          f"{int((want == 0).sum())} zero (outside) in the plain version, "
+          f"{int((got == 0).sum())} in the kernel")
     check(err <= 1e-3, f"K6 warp kernel differs from its plain version by {err} > 1e-3")
+    check(bool((want[-1] == 0).any()) and bool((want[-1] != 0).any()),
+          "the last K6 candidate does not map partly outside the image")
     # The library yardstick: grid_sample (bilinear, zeros outside) on the
-    # same points in its normalised coordinates, made outside the timing.
+    # same points, made by the plain version outside the timing, in its
+    # normalised coordinates (coordinate generation is excluded: this
+    # favours the library).
+    sxp, syp = verify.warp_coords(tf, grid, dev)
     img4 = small[None, None]
-    grid = torch.stack([xs * (2.0 / (ws - 1)) - 1.0, ys * (2.0 / (hs - 1)) - 1.0], dim=-1)[None]
-    lib = torch.nn.functional.grid_sample(img4, grid, mode="bilinear", padding_mode="zeros",
-                                          align_corners=True)[0, 0]
-    inb = (xs >= 0) & (xs <= ws - 1) & (ys >= 0) & (ys <= hs - 1)
+    gs_grid = torch.stack([sxp * (2.0 / (ws - 1)) - 1.0, syp * (2.0 / (hs - 1)) - 1.0],
+                          dim=-1).reshape(1, -1, grid.out_w, 2)
+    library = lambda: torch.nn.functional.grid_sample(  # noqa: E731
+        img4, gs_grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+    lib = library().reshape(got.shape)
+    inb = (sxp >= 0) & (sxp <= ws - 1) & (syp >= 0) & (syp <= hs - 1)
     print(f"[K6] grid_sample vs kernel on the {int(inb.sum())} points inside the image: "
           f"max_abs_diff {float((lib - got)[inb].abs().max())} (outside, the kernel gives 0 "
           "and grid_sample blends the border taps)")
-    ms = cuda_ms({
-        "kernel": lambda: cuda_warp.bilinear_sample(small, xs, ys),
-        "plain": lambda: cuda_warp.bilinear_sample_plain(small, xs, ys),
-        "library": lambda: torch.nn.functional.grid_sample(
-            img4, grid, mode="bilinear", padding_mode="zeros", align_corners=True),
-    })
-    # Reads the thumbnail and the points once, writes one value per point;
-    # ~20 f32 operations per point (clips, tent weights, 4 multiply-adds).
-    n_pt = xs.numel()
-    rows.append(kernel_row("bilinear_sample", "warp.cu", "slideo_tpu/ops/pallas_warp.py:86",
-                           err, ms, bound(small.numel() * 4 + n_pt * 12, n_pt * 20, "f32"),
-                           library_ms=ms["library"]))
+    kernel = lambda: cuda_warp.warp_sample(small, tf, grid)  # noqa: E731
+    ms = cuda_ms({"kernel": kernel, "plain": lambda: verify.warp_sample_plain(small, tf, grid),
+                  "library": library})
+    dev_ms = device_ms({"kernel": kernel, "library": library}, ms)
+    # Reads the thumbnail once and 16 B of transform per candidate, writes
+    # one value per point; ~12 f32 operations per point to form it and ~20
+    # to sample it (clips, tent weights, 4 multiply-adds).
+    rows.append(kernel_row(
+        "warp_sample", "warp.cu", "slideo_tpu/ops/pallas_warp.py:86", err, ms, dev_ms,
+        bound(small.numel() * 4 + 16 * got.shape[0] + 4 * n_pt, 32 * n_pt, "f32")))
     for r in rows:
         print_row(r, smi)
     return rows
 
 
+def table_bound(q: int, n_cols: int, k: int) -> dict:
+    """K5 reads the queries and the listed slides' rows once (256 B + a valid
+    byte a slot) and writes best + arg; 2 * 256 int8 operations a (query,
+    slot) pair."""
+    return bound(n_cols * k * (256 + 1) + q * 256 + q * n_cols * 8, 2 * q * n_cols * k * 256, "int8")
+
+
+def check_table(torch, label: str, query, di, n_slides: int, k: int, slide_ids=None) -> float:
+    """Hold K5 bit-equal (best and arg) to its plain version; returns the
+    max abs error of best (0)."""
+    from slideo_tpu_torch.ops import cuda_table
+
+    best, arg = cuda_table.match_table_scores(query, di.desc, di.valid, n_slides, k, slide_ids)
+    pbest, parg = cuda_table.match_table_scores_plain(query, di.desc, di.valid, n_slides, k, slide_ids)
+    torch.cuda.synchronize()
+    same = torch.equal(best, pbest) and torch.equal(arg, parg)
+    cols = n_slides if slide_ids is None else slide_ids.shape[0]
+    print(f"[K5] {label}: query {tuple(query.shape)} x {cols} columns of {k} slots: "
+          f"best+arg bit-equal {same}")
+    check(same, f"K5 table kernel ({label}) is not bit-equal to its plain version")
+    return float((best - pbest).abs().max())
+
+
+def time_table(torch, label: str, query, di, n_slides: int, k: int, slide_ids, smi: str):
+    """Call ms of K5 and its plain version, device ms of K5; returns both."""
+    from slideo_tpu_torch.ops import cuda_table
+
+    kernel = lambda: cuda_table.match_table_scores(query, di.desc, di.valid, n_slides, k, slide_ids)  # noqa: E731
+    ms = cuda_ms({"kernel": kernel, "plain": lambda: cuda_table.match_table_scores_plain(
+        query, di.desc, di.valid, n_slides, k, slide_ids)})
+    dev = device_ms({"kernel": kernel}, ms)
+    b = table_bound(query.shape[0], n_slides if slide_ids is None else slide_ids.shape[0], k)
+    print(f"[time] match_table {label}: kernel call {ms['kernel']:.4f} ms, device "
+          f"{dev['kernel']:.4f} ms; plain {ms['plain']:.4f} ms; bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}) ({smi})")
+    return ms, dev
+
+
+def phase_profiler_check(torch, smi: str) -> None:
+    """K5 at Q=768 x 64 slides x 2048 slots (random +-1 rows): the graph
+    replay's device ms against ``torch.profiler``'s kernel durations."""
+    from slideo_tpu_torch.ops import cuda_table, hamming
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    pm1 = lambda *shape: (torch.randint(0, 2, shape, generator=gen, device=dev,  # noqa: E731
+                                        dtype=torch.int8) * 2 - 1).to(torch.int8)
+    di = hamming.build_index(pm1(N_SLIDES, 2048, 256),
+                             torch.rand(N_SLIDES, 2048, generator=gen, device=dev) > 0.1)
+    query = pm1(768, 256)
+    kernel = lambda: cuda_table.match_table_scores(query, di.desc, di.valid, N_SLIDES, 2048)  # noqa: E731
+    graph = device_ms({"kernel": kernel}, cuda_ms({"kernel": kernel}, reps=3))["kernel"]
+    prof = profiler_device_ms(kernel, "match_table_kernel")
+    print(f"[time] match_table Q=768 x {N_SLIDES} slides: graph replay {graph:.4f} ms, "
+          f"torch.profiler kernel duration {'not recorded' if prof is None else f'{prof:.4f} ms'} "
+          f"({smi})")
+
+
 def print_row(r: dict, smi: str) -> None:
-    lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-    print(f"[time] {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-          f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library {lib} ({smi})")
+    lib = ("none" if r["library_ms"] is None
+           else f"call {r['library_ms']:.4f} ms, device {r['library_device_ms']:.4f} ms")
+    print(f"[time] {r['name']}: kernel call {r['ms']:.4f} ms, device {r['device_ms']:.4f} ms; "
+          f"plain {r['plain_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
+          f"library {lib} ({smi})")
 
 
 def make_stream(rng: np.random.RandomState, deck: np.ndarray):
@@ -503,7 +718,7 @@ def phase_screened(torch, seed: int, smi: str) -> tuple[dict, dict, dict]:
 
     from slideo_tpu_torch import DEFAULT_CONFIG
     from slideo_tpu_torch.models import orb_matcher
-    from slideo_tpu_torch.ops import cuda_screen, cuda_table, features, hamming
+    from slideo_tpu_torch.ops import cuda_screen, features, hamming
 
     cfg = DEFAULT_CONFIG
     rng = np.random.RandomState(seed + 1)
@@ -553,32 +768,29 @@ def phase_screened(torch, seed: int, smi: str) -> tuple[dict, dict, dict]:
         "kernel": lambda: cuda_screen.screen_scores(prefixes, di.desc, di.valid, n_slides, kps_per),
         "plain": lambda: cuda_screen.screen_scores_plain(prefixes, di.desc, di.valid, n_slides, kps_per),
     }, reps=5)
+    dev_ms = device_ms({"kernel": lambda: cuda_screen.screen_scores(
+        prefixes, di.desc, di.valid, n_slides, kps_per)}, ms, reps=5)
     r, n_idx = prefixes.shape[0], n_slides * kps_per
     row = kernel_row(
-        "screen_scores", "screen.cu", "slideo_tpu/ops/pallas_table.py:143", err, ms,
+        "screen_scores", "screen.cu", "slideo_tpu/ops/pallas_table.py:143", err, ms, dev_ms,
         bound(n_idx * (cuda_screen.SCREEN_BITS + 1) + r * cuda_screen.SCREEN_BITS + r * n_slides * 4,
               2 * r * n_idx * cuda_screen.SCREEN_BITS, "int8"),
     )
     print_row(row, smi)
 
-    # (b): K5 (a) over the first frame's candidate slides, both query buckets.
+    # (b): K5 (a) over the first frame's candidate slides (stage 2), both
+    # query buckets, and at Q=2048 over all 500 slides (the exact run's table).
     cand = hamming.screen_slides_batched(qdesc[:1], di, n_slides, kps_per, cfg.match)[0]
     fmeta = features.pyramid_meta(*FRAME_HW, cfg.orb)
     atlas = features.build_pyramid(torch.from_numpy(frames[0]).to(dev).float(), cfg.orb)
     fkps = features.detect_pyramid(atlas, fmeta, cfg.orb)
     for q in (768, cfg.orb.max_keypoints):
         query = features.describe(atlas, fmeta, fkps, q, cfg.orb).desc.contiguous()
-        b1, a1 = cuda_table.match_table_scores(query, di.desc, di.valid, n_slides, kps_per, cand)
-        b2, a2 = cuda_table.match_table_scores_plain(query, di.desc, di.valid, n_slides, kps_per, cand)
-        torch.cuda.synchronize()
-        same = torch.equal(b1, b2) and torch.equal(a1, a2)
-        t = cuda_ms({
-            "kernel": lambda: cuda_table.match_table_scores(query, di.desc, di.valid, n_slides, kps_per, cand),
-            "plain": lambda: cuda_table.match_table_scores_plain(query, di.desc, di.valid, n_slides, kps_per, cand),
-        })
-        print(f"[K5] query {tuple(query.shape)} x candidates {cand.tolist()}: best+arg bit-equal {same}; "
-              f"kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms ({smi})")
-        check(same, f"K5 table kernel over a slide list at Q={q} is not bit-equal to its plain version")
+        label = f"Q={q} x {cand.shape[0]} listed slides {cand.tolist()}"
+        check_table(torch, label, query, di, n_slides, kps_per, cand)
+        time_table(torch, label, query, di, n_slides, kps_per, cand, smi)
+    check_table(torch, f"Q={q} x {n_slides} slides", query, di, n_slides, kps_per)
+    time_table(torch, f"Q={q} x {n_slides} slides", query, di, n_slides, kps_per, None, smi)
     return row, screened["launches"], exact
 
 
@@ -594,7 +806,7 @@ def phase_mesh(torch, deck: np.ndarray, runs, seed: int, smi: str, slice_out: di
     500-slide index. Returns K5 (c)'s kernel row and the launches of (a)
     and (b)."""
     from slideo_tpu_torch import DEFAULT_CONFIG, _kernels
-    from slideo_tpu_torch.ops import cuda_table, features, hamming
+    from slideo_tpu_torch.ops import features, hamming
     from slideo_tpu_torch.parallel import mesh as pmesh
 
     cfg = DEFAULT_CONFIG
@@ -648,22 +860,11 @@ def phase_mesh(torch, deck: np.ndarray, runs, seed: int, smi: str, slice_out: di
     check(same, "the gathered shard tables differ from the table over all slides")
     sdi = shards[0, 0].desc_index
     s_local = sdi.desc.shape[0] // kps_per
-    best, arg = cuda_table.match_table_scores(query, sdi.desc, sdi.valid, s_local, kps_per)
-    pbest, parg = cuda_table.match_table_scores_plain(query, sdi.desc, sdi.valid, s_local, kps_per)
-    torch.cuda.synchronize()
-    same = torch.equal(best, pbest) and torch.equal(arg, parg)
-    print(f"[K5c] query {tuple(query.shape)} x shard {s_local}x{kps_per}: best+arg bit-equal {same}")
-    check(same, "the shard table is not bit-equal to its plain version")
-    ms = cuda_ms({
-        "kernel": lambda: cuda_table.match_table_scores(query, sdi.desc, sdi.valid, s_local, kps_per),
-        "plain": lambda: cuda_table.match_table_scores_plain(query, sdi.desc, sdi.valid, s_local, kps_per),
-    })
-    q, n_idx = query.shape[0], s_local * kps_per
-    row = kernel_row(
-        "match_table_shard", "table.cu", "slideo_tpu/ops/hamming.py:293",
-        float((best - pbest).abs().max()), ms,
-        bound(n_idx * (256 + 1) + q * 256 + q * s_local * 8, 2 * q * n_idx * 256, "int8"),
-    )
+    label = f"shard of {s_local} slides"
+    err = check_table(torch, label, query, sdi, s_local, kps_per)
+    ms, dev_ms = time_table(torch, label, query, sdi, s_local, kps_per, None, smi)
+    row = kernel_row("match_table_shard", "table.cu", "slideo_tpu/ops/hamming.py:293", err, ms,
+                     dev_ms, table_bound(query.shape[0], s_local, kps_per))
     print_row(row, smi)
     return row, dp["launches"], ip
 
@@ -700,7 +901,8 @@ def phase_fast_batch(torch, deck: np.ndarray, runs, smi: str) -> tuple[dict, dic
     print(f"[time] fast_nms_batch x{len(deck)}: K2 {ms['kernel']:.4f} ms, {len(deck)} K1 launches "
           f"{ms['k1']:.4f} ms, plain {ms['plain']:.4f} ms ({smi})")
     n_px = atlases.numel()
-    row = kernel_row("fast_nms_batch", "fast.cu", "slideo_tpu/ops/pallas_fast.py:340", err, ms,
+    dev_ms = device_ms({"kernel": lambda: cuda_fast.fast_score_map_batch(atlases, thr)}, ms, reps=3)
+    row = kernel_row("fast_nms_batch", "fast.cu", "slideo_tpu/ops/pallas_fast.py:340", err, ms, dev_ms,
                      bound(n_px * (2 + 4), n_px * (16 + 2 * 16 * 9 + 8), "f32"))
     print_row(row, smi)
     del atlases, k2
@@ -720,6 +922,8 @@ def phase_fast_batch(torch, deck: np.ndarray, runs, smi: str) -> tuple[dict, dic
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the synthetic deck and stream")
+    ap.add_argument("--profiler-check", action="store_true",
+                    help="only cross-check K5's device ms with torch.profiler, then exit")
     args = ap.parse_args()
 
     import torch
@@ -727,6 +931,9 @@ def main() -> None:
     t_start = time.perf_counter()
     smi = phase_environment(torch)
     phase_build()
+    if args.profiler_check:
+        phase_profiler_check(torch, smi)
+        return
     rng = np.random.RandomState(args.seed)
     t0 = time.perf_counter()
     deck = make_deck(rng, N_SLIDES)
@@ -747,7 +954,7 @@ def main() -> None:
     counted = {name: sum(p[name] for p in paths) for name in paths[0]}
     counted["table"] -= ip_launches["table"]
     by_name = {"fast_nms": "fast", "orb_describe": "orb", "match_table": "table",
-               "bilinear_sample": "warp", "screen_scores": "screen", "fast_nms_batch": "fast_batch"}
+               "warp_sample": "warp", "screen_scores": "screen", "fast_nms_batch": "fast_batch"}
     for r in rows:
         r["launches"] = (ip_launches["table"] if r["name"] == "match_table_shard"
                          else counted[by_name[r["name"]]])

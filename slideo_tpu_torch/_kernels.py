@@ -46,12 +46,13 @@ _SIGNATURES = {
     "slideo_fast_nms_batch": (_P, _P, _I, _I, _I, _F, _P),
     # atlas, h, w, y0, x0, k, a_start, a_w, d_start, d_w, bins, out, stream
     "slideo_orb_describe": (_P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P),
-    # query, q, desc, valid, n_cols, k_per_slide, slide_list, best, arg, stream
-    "slideo_match_table": (_P, _I, _P, _P, _I, _I, _P, _P, _P, _P),
+    # query, q, desc, valid, n_slides, n_cols, k_per_slide, slide_list, best, arg, stream
+    "slideo_match_table": (_P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P),
     # query, q, desc, valid, n_slides, k_per_slide, best, stream
     "slideo_screen": (_P, _I, _P, _P, _I, _I, _P, _P),
-    # img, h, w, xs, ys, n, out, stream
-    "slideo_bilinear_sample": (_P, _I, _I, _P, _P, _I, _P, _P),
+    # img, h, w, a, b, tx, ty, n_t, sx, sy, inv_fx, inv_fy, out_h, out_w,
+    # stride, out, stream
+    "slideo_warp_sample": (_P, _I, _I, _P, _P, _P, _P, _I, _F, _F, _F, _F, _I, _I, _I, _P, _P),
 }
 
 launches: dict[str, int] = {

@@ -1,9 +1,12 @@
-// K5 (mode a): exact per-(query, slide) best dot product and first arg-best.
+// K5 (modes a and c): exact per-(query, slide) best dot product and first arg-best,
+// on the int8 tensor cores.
 //
 // Replaces slideo_tpu/ops/pallas_table.py:match_table_scores_pallas in its
 // int8 / transposed / with-argmax mode (_kernel_t), the exact match table of
 // decks up to screen_above_slides, and stage 2 of screened decks over a
-// frame's candidate slides. Contract, bit-equal to ops/hamming.match_table:
+// frame's candidate slides; launched on an index shard it serves the
+// non-transposed mode (c) of the index-parallel step. Contract, bit-equal to
+// ops/hamming.match_table:
 //   slide(c)       = slide_list ? slide_list[c] : c     (column c of the table)
 //   score[q, c, k] = valid[s*K + k] ? <query[q], desc[s*K + k]> : -2^30,
 //                    s = slide(c)
@@ -17,112 +20,240 @@
 // bits cannot represent the zero rows.
 //
 // What bounds it on the card: 2*Q*S*K*256 int8 operations (25.8 G MAC at
-// Q=768, S=64, K=2048) against ~S*K*256 bytes of index — compute-bound.
-// Design: one block per (64-query tile, table column). The query tile stays in
-// shared memory; the slide's descriptors stream through shared memory 64
-// rows at a time. Each of the 256 threads owns a 4 x 4 block of (query,
-// slot) dot products computed with __dp4a on packed int8 words, folds them
-// into a running max / first argmax per query, and the 16 threads sharing a
-// query reduce with warp shuffles. Scores never leave the SM; only the
-// [Q, S] result is written.
+// Q=768, S=64, K=2048) against ~S*K*257 bytes of index: compute-bound, so the
+// dots run on the int8 tensor cores (mma.sync m16n8k32 s8.s8.s32), not on
+// __dp4a, whose ceiling at this size is ~0.39 ms on 132 SMs.
+// Design: one block of 4 warps per (64-query tile, table column), query
+// tiles fastest in launch order, so the blocks of one slide run together and
+// its 512 KB of descriptors stay in L2 across query tiles. A 64-query tile
+// gives 192 blocks even for the 16-column stage 2 at Q=768 (a 128-query tile
+// would leave most of the 132 SMs idle there). Warp w holds query rows
+// 32*(w&1)..+31 as A fragments for all 8 k-steps in registers (64 registers,
+// loaded once with ldmatrix) and multiplies them with slots 32*(w>>1)..+31
+// of each 64-slot tile. The slide's descriptor rows (slot-major, 256 B: the
+// .col B operand as they lie) stream through a 3-stage shared-memory ring by
+// cp.async.cg 16-byte copies and are read with ldmatrix; rows are padded to
+// 272 B so that the 8 rows of an ldmatrix hit 8 distinct bank groups. The
+// k-steps run outermost over 8 independent accumulator chains (4 slot groups
+// x 2 query halves), so consecutive mma do not wait for each other. The
+// int32 accumulators are masked by `valid` and folded into a running best
+// per row as packed (score, slot) keys, whose integer max is the tie rule:
+// the larger score or, on equal scores, the smaller slot. That total order
+// makes the result independent of the reduction order (quad shuffles, then
+// the two slot-half warps through shared memory). Only [Q, C] is written.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
-constexpr int WORDS = 64;         // 256 int8 = 64 packed int32 words
-constexpr int QT = 64;            // queries per block
-constexpr int KT = 64;            // index slots per shared-memory chunk
-constexpr int LD = WORDS + 1;     // padded row: conflict-free column reads
-constexpr int NEG = -(1 << 30);   // invalid-slot score (hamming._NEG)
+constexpr int D = 256;                 // int8 elements (bytes) per descriptor row
+constexpr int LDS = D + 16;            // padded shared-memory row (bytes)
+constexpr int CHUNKS = D / 16;         // 16-byte copies per row
+constexpr int QT = 64;                 // queries per block
+constexpr int NT = 64;                 // slots per ring stage
+constexpr int STAGES = 3;
+constexpr int THREADS = 128;           // 4 warps: 2 query halves x 2 slot halves
+constexpr int KSTEPS = D / 32;         // mma k-steps of 32 bytes
+constexpr int SMEM_BYTES = (QT + STAGES * NT) * LDS;   // 69,632 B
+constexpr int NEG = -(1 << 30);        // invalid-slot score (hamming._NEG)
 constexpr int kIntMin = -2147483647 - 1;
+constexpr int NG = NT / 2 / 8;         // 8-slot groups of a warp's half stage
+constexpr int BIAS = 512;              // added to every dot: keys of valid slots stay > 0
+constexpr int SLOT_MASK = 0xFFFF;      // slots (k_per_slide + NT - 1 of them) fit 16 bits
+constexpr int MAX_K_PER_SLIDE = SLOT_MASK + 1 - (NT - 1);
+constexpr int kMaxDevices = 64;
 
-__device__ __forceinline__ void load_rows(int (*dst)[LD], const int* __restrict__ src,
-                                          int rows_avail, int tid) {
-  // 64 rows x 16 int4 per row; 256 threads -> 4 int4 each.
-  for (int i = tid; i < 64 * (WORDS / 4); i += 256) {
-    const int r = i / (WORDS / 4), c4 = i % (WORDS / 4);
-    int4 v = make_int4(0, 0, 0, 0);
-    if (r < rows_avail) v = reinterpret_cast<const int4*>(src + (int64_t)r * WORDS)[c4];
-    dst[r][c4 * 4 + 0] = v.x;
-    dst[r][c4 * 4 + 1] = v.y;
-    dst[r][c4 * 4 + 2] = v.z;
-    dst[r][c4 * 4 + 3] = v.w;
-  }
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__global__ void __launch_bounds__(256)
-match_table_kernel(const int* __restrict__ query, int nq,
-                   const int* __restrict__ desc, const uint8_t* __restrict__ valid,
-                   int n_cols, int k_per_slide, const int* __restrict__ slide_list,
+// 16-byte global -> shared copy; with full == false no byte is read and the
+// 16 bytes are zero-filled.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool full) {
+  const int n = full ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c += A (16 x 32, row) * B (32 x 8, col), int8 in, int32 accumulate.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__global__ void __launch_bounds__(THREADS)
+match_table_kernel(const int8_t* __restrict__ query, int nq, const int8_t* __restrict__ desc,
+                   const uint8_t* __restrict__ valid, int n_slides, int n_cols,
+                   int k_per_slide, const int* __restrict__ slide_list,
                    float* __restrict__ best_out, int* __restrict__ arg_out) {
-  __shared__ int qs[QT][LD];
-  __shared__ int ds[KT][LD];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * 16 + tx;
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint8_t* qs = smem;                  // [QT][LDS] query tile
+  uint8_t* ring = smem + QT * LDS;     // [STAGES][NT][LDS] descriptor tiles
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;   // mma fragment coordinates
   const int q0 = blockIdx.x * QT;
   const int col = blockIdx.y;
   const int slide = slide_list ? slide_list[col] : col;
+  // A slide id out of range is a caller's bug. Trapping makes it a CUDA
+  // error at the next synchronisation instead of a table read from another
+  // slide's rows (a clamp) or from outside the index; checking on the host
+  // would cost a device-to-host sync per call and stall every mesh thread.
+  if (slide < 0 || slide >= n_slides) __trap();
   const int64_t row0 = (int64_t)slide * k_per_slide;
+  const int8_t* dslide = desc + row0 * D;
+  const uint8_t* vslide = valid + row0;
+  const int n_tiles = (k_per_slide + NT - 1) / NT;
 
-  load_rows(qs, query + (int64_t)q0 * WORDS, nq - q0, tid);
-
-  int best[4], arg[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) { best[i] = kIntMin; arg[i] = 0; }
-
-  for (int kc = 0; kc < k_per_slide; kc += KT) {
-    __syncthreads();  // previous chunk fully consumed (and qs loaded)
-    load_rows(ds, desc + (row0 + kc) * WORDS, k_per_slide - kc, tid);
-    __syncthreads();
-    int acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-#pragma unroll 8
-    for (int w = 0; w < WORDS; ++w) {
-      int a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[ty + 16 * i][w];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ds[tx + 16 * j][w];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
+  // The query tile (rows past nq zero-filled) rides in the first copy group.
+  for (int i = tid; i < QT * CHUNKS; i += THREADS) {
+    const int r = i / CHUNKS, c = i % CHUNKS;
+    const bool in = q0 + r < nq;
+    cp_async16(smem_addr(qs + r * LDS + c * 16), query + (int64_t)(in ? q0 + r : q0) * D + c * 16,
+               in);
+  }
+  auto load_tile = [&](int tile, int stage) {
+    uint8_t* dst = ring + stage * NT * LDS;
+    const int k0 = tile * NT;
+    for (int i = tid; i < NT * CHUNKS; i += THREADS) {
+      const int r = i / CHUNKS, c = i % CHUNKS;
+      const bool in = k0 + r < k_per_slide;
+      cp_async16(smem_addr(dst + r * LDS + c * 16), dslide + (int64_t)(in ? k0 + r : 0) * D + c * 16,
+                 in);
     }
+  };
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {  // ascending slot order: strict > keeps the first
-      const int k = kc + tx + 16 * j;
-      if (k >= k_per_slide) continue;
-      const bool ok = valid[row0 + k] != 0;
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_tiles) load_tile(s, s);
+    cp_async_commit();
+  }
+
+  const int wm = (warp & 1) * 32;          // this warp's query rows in the tile
+  const int wn = (warp >> 1) * (NT / 2);   // and its slots in each stage
+
+  // A fragments: ldmatrix lane i addresses row (i & 7) + 8 * ((i >> 3) & 1)
+  // of the 16-row tile, 16-byte chunk (i >> 4) of the 32-byte k-step.
+  cp_async_wait<STAGES - 2>();
+  __syncthreads();
+  uint32_t a[2][KSTEPS][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int s = ok ? acc[i][j] : NEG;
-        if (s > best[i]) { best[i] = s; arg[i] = k; }
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int ks = 0; ks < KSTEPS; ++ks)
+      ldmatrix_x4(smem_addr(qs + (wm + 16 * m + (lane & 7) + 8 * ((lane >> 3) & 1)) * LDS +
+                            (2 * ks + (lane >> 4)) * 16),
+                  a[m][ks]);
+
+  // Running best key of rows wm + 16*(r>>1) + 8*(r&1) + g, r = 0..3. A key
+  // packs (score, slot) so that one integer max is the tie rule: a valid
+  // slot's key is (dot + BIAS) << 16 | (SLOT_MASK - k), >= 2^24; an invalid
+  // slot's is SLOT_MASK - k, below every valid key. Higher score wins, then
+  // the lower slot; slots past K (zero-filled, invalid) lose to every slot
+  // of the slide.
+  int best[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) best[r] = kIntMin;
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    if (tile > 0) {
+      cp_async_wait<STAGES - 2>();   // this tile has landed ...
+      __syncthreads();               // ... and every warp is done with tile - 1
+    }
+    const int next = tile + STAGES - 1;   // refills the stage of tile - 1
+    if (next < n_tiles) load_tile(next, next % STAGES);
+    cp_async_commit();
+
+    const uint8_t* st = ring + (tile % STAGES) * NT * LDS;
+    const int k0 = tile * NT;
+    // Validity of this lane's slots k0 + wn + 8*ng + 2t (+1), read before the
+    // products so that its latency hides behind them.
+    bool ok[NG][2];
+#pragma unroll
+    for (int ng = 0; ng < NG; ++ng)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int k = k0 + wn + 8 * ng + 2 * t + j;
+        ok[ng][j] = k < k_per_slide && __ldg(vslide + k) != 0;
       }
-    }
+    // 8 independent accumulator chains (4 slot groups x 2 query halves),
+    // k-steps outermost, so consecutive mma do not wait for each other. The
+    // accumulators start at BIAS: a dot lies in [-256, 256].
+    int c[NG][2][4];
+#pragma unroll
+    for (int ng = 0; ng < NG; ++ng)
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) c[ng][m][i] = BIAS;
+#pragma unroll
+    for (int j = 0; j < KSTEPS / 2; ++j)
+#pragma unroll
+      for (int ng = 0; ng < NG; ++ng) {
+        // Lane i: slot wn + 8ng + (i & 7), 16-byte chunk 4j + (i >> 3): b[0],
+        // b[1] are k-step 2j's B fragment, b[2], b[3] k-step 2j+1's.
+        uint32_t b[4];
+        ldmatrix_x4(smem_addr(st + (wn + 8 * ng + (lane & 7)) * LDS + (4 * j + (lane >> 3)) * 16), b);
+        mma_s8(c[ng][0], a[0][2 * j], b[0], b[1]);
+        mma_s8(c[ng][1], a[1][2 * j], b[0], b[1]);
+        mma_s8(c[ng][0], a[0][2 * j + 1], b[2], b[3]);
+        mma_s8(c[ng][1], a[1][2 * j + 1], b[2], b[3]);
+      }
+    // c[ng][m][2h + j]: row 16m + 8h + g, slot k0 + wn + 8ng + 2t + j.
+#pragma unroll
+    for (int ng = 0; ng < NG; ++ng)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int low = SLOT_MASK - (k0 + wn + 8 * ng + 2 * t + j);
+          const int key = ok[ng][j] ? (c[ng][r >> 1][2 * (r & 1) + j] << 16) | low : low;
+          best[r] = max(best[r], key);
+        }
   }
+  cp_async_wait<0>();
 
-  // Reduce over the 16 threads (tx) that share each query row.
+  // The 4 lanes of a quad hold the same rows.
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int r = 0; r < 4; ++r)
 #pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
-      const int ob = __shfl_xor_sync(0xffffffffu, best[i], off);
-      const int oa = __shfl_xor_sync(0xffffffffu, arg[i], off);
-      if (ob > best[i] || (ob == best[i] && oa < arg[i])) { best[i] = ob; arg[i] = oa; }
-    }
+    for (int off = 1; off < 4; off <<= 1)
+      best[r] = max(best[r], __shfl_xor_sync(0xffffffffu, best[r], off));
+  // The two slot-half warps of a query half meet in shared memory.
+  __syncthreads();   // every warp is done with the ring and the query tile
+  int* red = reinterpret_cast<int*>(smem);   // [QT]
+  if (wn != 0 && t == 0) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) red[wm + 16 * (r >> 1) + 8 * (r & 1) + g] = best[r];
   }
-  if (tx == 0) {
+  __syncthreads();
+  if (wn == 0 && t == 0) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int q = q0 + ty + 16 * i;
+    for (int r = 0; r < 4; ++r) {
+      const int row = wm + 16 * (r >> 1) + 8 * (r & 1) + g;
+      const int key = max(best[r], red[row]);
+      const int q = q0 + row;
       if (q < nq) {
-        best_out[(int64_t)q * n_cols + col] = (float)best[i];
-        arg_out[(int64_t)q * n_cols + col] = arg[i];
+        const int hi = key >> 16;
+        best_out[(int64_t)q * n_cols + col] = hi ? (float)(hi - BIAS) : (float)NEG;
+        arg_out[(int64_t)q * n_cols + col] = SLOT_MASK - (key & SLOT_MASK);
       }
     }
   }
@@ -130,17 +261,31 @@ match_table_kernel(const int* __restrict__ query, int nq,
 
 }  // namespace
 
-// slide_list: n_cols int32 slide ids, or null for columns 0..n_cols-1.
+// query [nq, 256] and desc [n_slides * k_per_slide, 256] int8, both 16-byte
+// aligned; k_per_slide <= MAX_K_PER_SLIDE; slide_list: n_cols int32 slide ids, or null for columns
+// 0..n_cols-1 (then n_cols == n_slides). An id outside [0, n_slides) traps.
 extern "C" int slideo_match_table(const void* query, int nq, const void* desc,
-                                  const void* valid, int n_cols,
+                                  const void* valid, int n_slides, int n_cols,
                                   int k_per_slide, const void* slide_list,
                                   void* best, void* arg, void* stream) {
-  dim3 block(16, 16);
+  // Above 48 KB of shared memory needs an opt-in, once per device. Mesh
+  // threads launch at once: the flags are atomic, and a repeated opt-in is
+  // harmless.
+  static std::atomic<bool> opted_in[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kMaxDevices || !opted_in[dev].load(std::memory_order_acquire)) {
+    err = cudaFuncSetAttribute(match_table_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM_BYTES);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < kMaxDevices) opted_in[dev].store(true, std::memory_order_release);
+  }
+  if (k_per_slide < 1 || k_per_slide > MAX_K_PER_SLIDE) return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid((nq + QT - 1) / QT, n_cols);
-  match_table_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(query), nq, static_cast<const int*>(desc),
-      static_cast<const uint8_t*>(valid), n_cols, k_per_slide,
-      static_cast<const int*>(slide_list), static_cast<float*>(best),
-      static_cast<int*>(arg));
+  match_table_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(query), nq, static_cast<const int8_t*>(desc),
+      static_cast<const uint8_t*>(valid), n_slides, n_cols, k_per_slide,
+      static_cast<const int*>(slide_list), static_cast<float*>(best), static_cast<int*>(arg));
   return static_cast<int>(cudaGetLastError());
 }

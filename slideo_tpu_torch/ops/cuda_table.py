@@ -1,9 +1,12 @@
 """Wrapper of kernel K5 (csrc/table.cu): exact per-slide best dot + argmax.
 
 Replaces ``slideo_tpu/ops/pallas_table.py:match_table_scores_pallas`` in the
-int8 / with-argmax mode of the exact table. A CUDA tensor launches the
-kernel; a CPU tensor takes the plain version, the chunked matmul + max /
-argmax of ``hamming.py:307-358``. Both are bit-equal to the JAX table.
+int8 / with-argmax mode of the exact table (and, on an index shard, its
+non-transposed mode). A CUDA tensor launches the kernel (int8 tensor cores);
+a CPU tensor takes the plain version, the chunked matmul + max / argmax of
+``hamming.py:307-358``. Both are bit-equal to the JAX table. A slide id
+outside the index raises ``ValueError`` in the plain version and traps in
+the kernel, which checks it on the card instead of syncing the host.
 """
 
 from __future__ import annotations
@@ -15,8 +18,9 @@ from .. import _kernels
 __all__ = ["match_table_scores", "match_table_scores_plain"]
 
 _NEG = -(2**30)      # score of an invalid slot (hamming._NEG)
-_D_BITS = 256        # descriptor length the kernel packs into 64 words
+_D_BITS = 256        # descriptor length: one int8 a bit, 256 bytes a row
 _CHUNK_SLIDES = 8    # slides per matmul of the plain version
+_MAX_K = 65536 - 63  # slots a slide may have: the kernel packs a slot into 16 bits
 
 
 def match_table_scores_plain(
@@ -26,6 +30,8 @@ def match_table_scores_plain(
     """(best [Q, C] float32, arg [Q, C] int32) by chunks of slides: f32
     matmul (exact for +-1), invalid slots scored -2^30, first argmax."""
     if slide_ids is not None:
+        if not bool(((slide_ids >= 0) & (slide_ids < n_slides)).all()):
+            raise ValueError(f"match_table: slide_ids outside [0, {n_slides})")
         rows = (
             slide_ids.long()[:, None] * k_per_slide
             + torch.arange(k_per_slide, device=desc.device)
@@ -54,7 +60,8 @@ def match_table_scores(
 
     query [Q, 256] int8 (+-1, invalid rows 0); desc [S*K, 256] int8 (+-1,
     invalid slots 0); valid [S*K] bool. The table's columns are the slides
-    ``slide_ids`` ([C] int32) of the index, or all S slides when it is None.
+    ``slide_ids`` ([C] int32) of the index, or all S slides when it is None;
+    on the card an id outside [0, S) traps (a CUDA error at the next sync).
     Returns (best [Q, C] float32, arg [Q, C] int32).
     """
     if _kernels.plain_or_raise(query):
@@ -69,11 +76,13 @@ def match_table_scores(
             f"match_table: query {tuple(query.shape)}, desc {tuple(desc.shape)}, "
             f"valid {tuple(valid.shape)} do not fit {n_slides} x {k_per_slide} x {_D_BITS}"
         )
+    if k_per_slide > _MAX_K:
+        raise ValueError(f"match_table: {k_per_slide} slots a slide exceed the kernel's {_MAX_K}")
+    if query.data_ptr() % 16 or desc.data_ptr() % 16:
+        raise ValueError("match_table: query and desc must be 16-byte aligned (cp.async)")
     n_cols, list_ptr = n_slides, None
     if slide_ids is not None:
         _kernels.require_cuda(slide_ids, "match_table slide_ids", torch.int32, 1)
-        if not bool(((slide_ids >= 0) & (slide_ids < n_slides)).all()):
-            raise ValueError(f"match_table: slide_ids outside [0, {n_slides})")
         n_cols, list_ptr = slide_ids.shape[0], slide_ids.data_ptr()
     best = torch.empty((q, n_cols), dtype=torch.float32, device=query.device)
     arg = torch.empty((q, n_cols), dtype=torch.int32, device=query.device)
@@ -81,7 +90,7 @@ def match_table_scores(
         return best, arg
     _kernels.launch(
         "table", "slideo_match_table", query,
-        query.data_ptr(), q, desc.data_ptr(), valid.data_ptr(), n_cols,
+        query.data_ptr(), q, desc.data_ptr(), valid.data_ptr(), n_slides, n_cols,
         k_per_slide, list_ptr, best.data_ptr(), arg.data_ptr(),
     )
     return best, arg

@@ -1,8 +1,11 @@
 """Wrapper of kernel K6 (csrc/warp.cu): bilinear sampling for verification.
 
-Replaces ``slideo_tpu/ops/pallas_warp.py:bilinear_sample_pallas``. A CUDA
-tensor launches the kernel; a CPU tensor takes the plain version
-``verify._bilinear_image``. Both return 0 at out-of-bounds points.
+Replaces ``slideo_tpu/ops/pallas_warp.py:bilinear_sample_pallas`` together
+with the coordinate code before it in ``verify.warp_similarity``: the kernel
+forms the warped points of the verification grid itself. A CUDA tensor
+launches the kernel; a CPU tensor takes the plain version
+``verify.warp_sample_plain`` (``verify.warp_coords`` followed by
+``verify._bilinear_image``). Both return 0 at out-of-bounds points.
 """
 
 from __future__ import annotations
@@ -11,32 +14,33 @@ import torch
 
 from .. import _kernels
 
-__all__ = ["bilinear_sample", "bilinear_sample_plain"]
+__all__ = ["warp_sample"]
 
 
-def bilinear_sample_plain(img: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
-    from .verify import _bilinear_image
-
-    return _bilinear_image(img, xs.reshape(-1), ys.reshape(-1)).reshape(xs.shape)
-
-
-def bilinear_sample(img: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
-    """Bilinear samples of a [H, W] float32 image at [T, P] float32 coords
-    -> [T, P] float32; points outside the image give 0."""
+def warp_sample(img: torch.Tensor, transforms, grid) -> torch.Tensor:
+    """Bilinear samples of the [H, W] float32 frame thumbnail ``img`` at the
+    points of ``grid`` (a ``verify.SampleGrid``) mapped by each of the T
+    similarity ``transforms`` (fields [T] float32) -> [T, out_h, out_w]
+    float32; points outside the image give 0."""
     if _kernels.plain_or_raise(img):
-        return bilinear_sample_plain(img, xs, ys)
-    _kernels.require_cuda(img, "bilinear_sample img", torch.float32, 2)
-    _kernels.require_cuda(xs, "bilinear_sample xs", torch.float32, 2)
-    _kernels.require_cuda(ys, "bilinear_sample ys", torch.float32, 2)
-    if xs.shape != ys.shape:
-        raise ValueError(f"xs {tuple(xs.shape)} and ys {tuple(ys.shape)} differ")
+        from .verify import warp_sample_plain
+
+        return warp_sample_plain(img, transforms, grid)
+    _kernels.require_cuda(img, "warp_sample img", torch.float32, 2)
+    fields = [f.contiguous() for f in transforms]
+    for name, f in zip(("a", "b", "tx", "ty"), fields):
+        _kernels.require_cuda(f, f"warp_sample transform {name}", torch.float32, 1)
+    n_t = fields[0].shape[0]
+    if any(f.shape[0] != n_t for f in fields):
+        raise ValueError(f"warp_sample: transform fields {[tuple(f.shape) for f in fields]} differ")
     h, w = img.shape
-    out = torch.empty(xs.shape, dtype=torch.float32, device=img.device)
-    n = xs.numel()
-    if n == 0:
+    out = torch.empty((n_t, grid.out_h, grid.out_w), dtype=torch.float32, device=img.device)
+    if out.numel() == 0:
         return out
     _kernels.launch(
-        "warp", "slideo_bilinear_sample", img,
-        img.data_ptr(), h, w, xs.data_ptr(), ys.data_ptr(), n, out.data_ptr(),
+        "warp", "slideo_warp_sample", img,
+        img.data_ptr(), h, w, *(f.data_ptr() for f in fields), n_t,
+        grid.sx, grid.sy, grid.inv_fx, grid.inv_fy, grid.out_h, grid.out_w, grid.stride,
+        out.data_ptr(),
     )
     return out

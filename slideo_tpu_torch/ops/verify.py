@@ -3,27 +3,84 @@
 Port of ``slideo_tpu/ops/verify.py:27-153`` (reference lib.rs:335-368): each
 slide-thumbnail pixel (on a ``stride`` grid) is mapped through the RANSAC
 transform into the frame and sampled bilinearly from the frame's
-area-downscaled thumbnail (kernel K6 on CUDA); the warped thumbnail is
-compared with the slide's by the L2 similarity.
+area-downscaled thumbnail (kernel K6 on CUDA, which forms the points
+itself); the warped thumbnail is compared with the slide's by the L2
+similarity.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-from .cuda_warp import bilinear_sample
+from .cuda_warp import warp_sample
 from .image import compute_similarity, small_size
 from .ransac import Similarity
 
-__all__ = ["warp_similarity"]
+__all__ = ["SampleGrid", "sample_grid", "warp_coords", "warp_sample_plain", "warp_similarity"]
 
 _CHUNK = 2048   # sample points per tent-weight matmul of _bilinear_image
+
+
+class SampleGrid(NamedTuple):
+    """The slide-thumbnail grid that verification samples: output (i, j) is
+    thumbnail pixel (i * stride, j * stride), (sx, sy) scale thumbnail
+    pixels to full slide pixels and (inv_fx, inv_fy) full frame pixels to
+    frame-thumbnail pixels."""
+
+    sx: float
+    sy: float
+    inv_fx: float
+    inv_fy: float
+    out_h: int
+    out_w: int
+    stride: int
+
+
+def sample_grid(
+    small_hw: tuple[int, int], slide_hw: tuple[int, int], frame_hw: tuple[int, int],
+    max_area: int = 300 * 400, stride: int = 1,
+) -> SampleGrid:
+    """The grid of slide thumbnails [hs, ws] = ``small_hw`` of pages
+    ``slide_hw``, sampled from the thumbnail of a ``frame_hw`` frame."""
+    hs, ws = small_hw
+    fsh, fsw = small_size(*frame_hw, max_area)
+    return SampleGrid(
+        sx=slide_hw[1] / ws, sy=slide_hw[0] / hs,
+        inv_fx=fsw / frame_hw[1], inv_fy=fsh / frame_hw[0],
+        out_h=len(range(0, hs, stride)), out_w=len(range(0, ws, stride)), stride=stride,
+    )
+
+
+def warp_coords(
+    transforms: Similarity, grid: SampleGrid, device: torch.device
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Frame-thumbnail coordinates (x, y), each [T, out_h, out_w] float32, of
+    the grid's points mapped by each transform (full-res slide coords ->
+    full-res frame coords). Kernel K6 repeats these operations in order."""
+    step = grid.stride
+    jj = (torch.arange(0, grid.out_w * step, step, dtype=torch.float32, device=device) + 0.5) * grid.sx - 0.5
+    ii = (torch.arange(0, grid.out_h * step, step, dtype=torch.float32, device=device) + 0.5) * grid.sy - 0.5
+    gx = jj[None, None, :]
+    gy = ii[None, :, None]
+    t = Similarity(*(f[:, None, None] for f in transforms))
+    fx = t.a * gx - t.b * gy + t.tx
+    fy = t.b * gx + t.a * gy + t.ty
+    return (fx + 0.5) * grid.inv_fx - 0.5, (fy + 0.5) * grid.inv_fy - 0.5
+
+
+def warp_sample_plain(img: torch.Tensor, transforms: Similarity, grid: SampleGrid) -> torch.Tensor:
+    """The plain version of kernel K6: ``warp_coords`` then
+    ``_bilinear_image`` -> [T, out_h, out_w]."""
+    sxp, syp = warp_coords(transforms, grid, img.device)
+    return _bilinear_image(img, sxp.reshape(-1), syp.reshape(-1)).reshape(sxp.shape)
 
 
 def _bilinear_image(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Bilinear sample of a [H, W] image at [N] float coords; out-of-bounds
     points give 0. Tent-weight form (``value = rowsum((Ry @ img) * Cx)``) in
-    chunks of points: the plain version of kernel K6."""
+    chunks of points: the sampling half of kernel K6's plain version."""
     h, w = img.shape
     inb = (x >= 0) & (x <= w - 1) & (y >= 0) & (y <= h - 1)
     grid_y = torch.arange(h, dtype=torch.float32, device=img.device)
@@ -56,29 +113,7 @@ def warp_similarity(
     full-res frame coords. slide_smalls [S, hs, ws]; slide_hw the full page
     size behind them.
     """
-    hs, ws = slide_smalls.shape[-2], slide_smalls.shape[-1]
-    full_h, full_w = slide_hw
-    fh, fw = frame_hw
-    fsh, fsw = small_size(fh, fw, max_area)
-    inv_fx = fsw / fw
-    inv_fy = fsh / fh
-    sy = full_h / hs
-    sx = full_w / ws
-    dev = frame_small.device
-    jj = (torch.arange(0, ws, stride, dtype=torch.float32, device=dev) + 0.5) * sx - 0.5
-    ii = (torch.arange(0, hs, stride, dtype=torch.float32, device=dev) + 0.5) * sy - 0.5
-    out_h, out_w = ii.shape[0], jj.shape[0]
-    gx = jj[None, None, :]
-    gy = ii[None, :, None]
-    t = Similarity(*(f[:, None, None] for f in transforms))
-    fx = t.a * gx - t.b * gy + t.tx
-    fy = t.b * gx + t.a * gy + t.ty
-    sxp = (fx + 0.5) * inv_fx - 0.5                     # [T, oh, ow]
-    syp = (fy + 0.5) * inv_fy - 0.5
-    n_t = sxp.shape[0]
-    warped = bilinear_sample(
-        frame_small.contiguous(), sxp.reshape(n_t, -1).contiguous(),
-        syp.reshape(n_t, -1).contiguous(),
-    ).reshape(n_t, out_h, out_w)
+    grid = sample_grid(slide_smalls.shape[-2:], slide_hw, frame_hw, max_area, stride)
+    warped = warp_sample(frame_small.contiguous(), transforms, grid)
     smalls = slide_smalls[cand_slide_ids.long()][:, ::stride, ::stride]
     return compute_similarity(warped, smalls, channels=1)

@@ -2,8 +2,11 @@
 
 Same numpy inputs through the JAX package and ``slideo_tpu_torch`` on the
 CPU. The table's plain version (kernel K5's reference on the card) must be
-bit-equal to ``hamming.match_table``; RANSAC gets JAX's own uniform draws
-injected, since a ``torch.Generator`` cannot reproduce threefry.
+bit-equal to ``hamming.match_table``, also on ``chip_smoke.py``'s
+adversarial index, on which the smoke run holds the kernel bit-equal to
+the plain version: together they hold the kernel's tie rule to JAX's.
+RANSAC gets JAX's own uniform draws injected, since a ``torch.Generator``
+cannot reproduce threefry. K6's plain version samples JAX's points.
 """
 
 from __future__ import annotations
@@ -16,11 +19,14 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import adversarial_table
 from slideo_tpu.config import DEFAULT_CONFIG
 from slideo_tpu.ops import hamming as jham
+from slideo_tpu.ops import image as jimage
 from slideo_tpu.ops import ransac as jransac
 from slideo_tpu.ops import select as jselect
 from slideo_tpu.ops import verify as jverify
+from slideo_tpu_torch.ops import cuda_table
 from slideo_tpu_torch.ops import hamming as tham
 from slideo_tpu_torch.ops import ransac as transac
 from slideo_tpu_torch.ops import select as tselect
@@ -86,6 +92,48 @@ def test_match_table_over_slide_list_bit_equal(cand):
     for name in ("dist", "train", "slide_ids", "valid"):
         w, g = np.asarray(getattr(want, name)), getattr(got, name).numpy()
         assert w.dtype == g.dtype and np.array_equal(w, g), name
+
+
+@pytest.mark.parametrize("listed", [False, True])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_table_tie_rule_on_adversarial_index(seed, listed):
+    """The plain table on the adversarial index (all-zero query rows tying
+    every valid slot, rows duplicated across lanes, quads, slot halves and
+    tiles, a slide with no valid slot, Q = 100 not a multiple of the
+    kernel's 64-query tile; with ``listed`` a slide list repeating ids) is
+    bit-equal to JAX's table: the first slot attaining the best wins."""
+    query, desc, valid, cand = adversarial_table(seed, q=100, s=6, k=256)
+    s, k, _ = desc.shape
+    ji = jham.build_index(jnp.asarray(desc), jnp.asarray(valid))
+    ti = tham.build_index(torch.from_numpy(desc), torch.from_numpy(valid))
+    if listed:
+        jc = jnp.asarray(cand)
+        want = jham.match_table(
+            jnp.asarray(query), jham.sub_index_for_slides(ji, jc, k), len(cand), k, slide_ids=jc
+        )
+        ids = torch.from_numpy(cand)
+    else:
+        want = jham.match_table(jnp.asarray(query), ji, s, k)
+        ids = None
+    best, arg = cuda_table.match_table_scores_plain(torch.from_numpy(query), ti.desc, ti.valid, s, k, ids)
+    assert np.array_equal(arg.numpy(), np.asarray(want.train))
+    assert np.array_equal(((256.0 - best) * 0.5).numpy(), np.asarray(want.dist))
+    if not listed:
+        # Row 3 is copied into slots 0 and 1 of slide 3; row 0 is all zero,
+        # so slide 0's first valid slot wins.
+        assert int(arg[3, 3]) == 0 and float(best[3, 3]) == 256.0
+        assert int(arg[0, 0]) == int(np.argmax(valid[0])) and float(best[0, 0]) == 0.0
+
+
+@pytest.mark.parametrize("bad", [-1, 6])
+def test_table_slide_id_out_of_range_raises(bad):
+    """The plain table refuses a slide id outside [0, S) (the kernel traps)."""
+    query, desc, valid, _ = adversarial_table(0, q=20, s=6, k=256)
+    ti = tham.build_index(torch.from_numpy(desc), torch.from_numpy(valid))
+    with pytest.raises(ValueError, match="outside"):
+        cuda_table.match_table_scores_plain(
+            torch.from_numpy(query), ti.desc, ti.valid, 6, 256, torch.tensor([0, bad], dtype=torch.int32)
+        )
 
 
 def _tie_table(seed: int, q: int = 120, s: int = 40):
@@ -213,3 +261,43 @@ def test_warp_similarity_matches_jax():
             torch.from_numpy(smalls), torch.from_numpy(cand), slide_hw, stride=stride,
         )
         np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_warp_sample_plain_matches_jax(stride):
+    """K6's plain version (``verify.warp_sample_plain``: ``warp_coords``
+    then ``_bilinear_image``) forms the points JAX's ``warp_similarity``
+    forms, bit for bit, and samples JAX's thumbnail there as JAX's
+    ``_bilinear_image`` does; the last candidate maps partly outside."""
+    rng = np.random.RandomState(2)
+    fh, fw = 240, 320
+    frame = (rng.rand(fh, fw) * 255).astype(np.float32)
+    slide_hw, (hs, ws) = (240, 320), (103, 137)
+    t = 5
+    th = np.deg2rad(rng.uniform(-3, 3, t))
+    sc = rng.uniform(0.9, 1.0, t)
+    a = (sc * np.cos(th)).astype(np.float32)
+    b = (sc * np.sin(th)).astype(np.float32)
+    tx = rng.uniform(-10, 10, t).astype(np.float32)
+    ty = rng.uniform(-10, 10, t).astype(np.float32)
+    tx[-1] = 150.0
+    # The points, as jverify.warp_similarity forms them.
+    fsh, fsw = jimage.small_size(fh, fw)
+    jj = (jnp.arange(0, ws, stride, dtype=jnp.float32) + 0.5) * (slide_hw[1] / ws) - 0.5
+    ii = (jnp.arange(0, hs, stride, dtype=jnp.float32) + 0.5) * (slide_hw[0] / hs) - 0.5
+    gx = jnp.broadcast_to(jj[None, None, :], (1, ii.shape[0], jj.shape[0]))
+    gy = jnp.broadcast_to(ii[None, :, None], (1, ii.shape[0], jj.shape[0]))
+    ja, jb, jtx, jty = (jnp.asarray(f)[:, None, None] for f in (a, b, tx, ty))
+    sxp = ((ja * gx - jb * gy + jtx) + 0.5) * (fsw / fw) - 0.5
+    syp = ((jb * gx + ja * gy + jty) + 0.5) * (fsh / fh) - 0.5
+    small = jimage.to_small_image(jnp.asarray(frame))
+    want = np.asarray(jverify._bilinear_image(small, sxp.reshape(-1), syp.reshape(-1))).reshape(sxp.shape)
+
+    grid = tverify.sample_grid((hs, ws), slide_hw, (fh, fw), stride=stride)
+    tf = transac.Similarity(*map(torch.from_numpy, (a, b, tx, ty)))
+    x, y = tverify.warp_coords(tf, grid, torch.device("cpu"))
+    assert np.array_equal(x.numpy(), np.asarray(sxp)) and np.array_equal(y.numpy(), np.asarray(syp))
+    got = tverify.warp_sample_plain(torch.from_numpy(np.array(small)), tf, grid)
+    assert got.shape == want.shape == (t, len(range(0, hs, stride)), len(range(0, ws, stride)))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
+    assert (want[-1] == 0).mean() > 0.3 and (want[-1] != 0).any()
