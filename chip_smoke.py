@@ -14,7 +14,10 @@ Phases:
    slideo_tpu_torch/_build/ (the library is reused while the sources are
    unchanged).
 3. Each hand-written kernel against its plain PyTorch version on the card,
-   at the shapes the match path gives it: K1, K3+K4, K5 (bit-equal at Q=768
+   at the shapes the match path gives it: K1 (bit-equal on a frame's atlas
+   and on a corner-dense atlas, the pyramid of a uniform-noise frame, each
+   with its candidate share and content-aware bound, and on an odd width,
+   an unaligned view and a 7 x 9 image), K3+K4, K5 (bit-equal at Q=768
    and Q=2048 x 64 slides, and on an adversarial index made to break its
    tie rule, over all slides and over a slide list with repeated ids), K6
    (10 candidates at stride 2, one mapping partly outside the frame).
@@ -46,8 +49,8 @@ Phases:
    counterpart of the TPU table kernel's non-transposed mode, K5 (c)) is
    held bit-equal to and timed against its plain version.
 7. K2: the batched FAST kernel on the 64 page atlases of phase 4's deck
-   ([64, 3880, 1920] bf16) bit-equal to 64 K1 launches and to its plain
-   version, timed against both; then the stage profile
+   ([64, 3880, 1920] bf16) and on 8 corner-dense atlases, bit-equal to K1
+   launches and to its plain version, timed against both; then the stage profile
    (``slideo_tpu_torch.tools.profile_stages``, batch 8) on that deck and
    the first 32 frames of phase 4's stream.
 
@@ -56,6 +59,11 @@ only the cross-check of the device-time method: K5's graph-replay device
 ms against ``torch.profiler``'s kernel durations at Q=768 x 64 slides. It
 is a separate run because an attached profiler slows every later launch
 of the process.
+
+``python3 chip_smoke.py --compare-fast SOURCE [SOURCE ...]`` runs phases 1
+and 2 and then only times versions of ``csrc/fast.cu`` (the checked-in one
+or edited copies keeping its two launchers) against each other in turns,
+each held bit-equal to the plain version first.
 
 Every path (phases 4, 5 screened, 6a, 6b, 7's profile) runs with the
 launch counts set to 0 just before it and read just after; a kernel's
@@ -67,7 +75,9 @@ CUDA graph and replayed between two events, divided by N), and so has the
 library call beside it where there is one. Prints the kernel table as one
 JSON line (each kernel's times, its plain version's call time, its bound
 on an H100 SXM from this run's shapes and, where one PyTorch call computes
-the same function, that call's times), then the nvidia-smi line, then
+the same function, that call's times; K1 and K2 also carry the candidate
+share of the input timed, and the same numbers on the corner-dense input
+under ``dense``), then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line.
 Any failed check raises and exits nonzero; without a CUDA device it exits
 nonzero before printing any result. Imports neither jax nor cv2, and
@@ -211,14 +221,53 @@ def bound(nbytes: float, ops: float, kind: str) -> dict:
 
 
 def kernel_row(name: str, source: str, replaces: str, err: float, ms: dict, dev: dict,
-               cost: dict) -> dict:
+               cost: dict, **extra) -> dict:
     """A kernel's line of the JSON table: ``ms`` holds the call ms of the
     kernel, its plain version and the library call (if any), ``dev`` the
-    device ms of the kernel and the library call."""
+    device ms of the kernel and the library call; ``extra`` adds keys."""
     return dict(name=name, route="cuda", source=f"slideo_tpu_torch/csrc/{source}",
                 replaces=replaces, launches=0, max_abs_err=err, ms=ms["kernel"],
                 device_ms=dev["kernel"], plain_ms=ms["plain"], **cost,
-                library_ms=ms.get("library"), library_device_ms=dev.get("library"))
+                library_ms=ms.get("library"), library_device_ms=dev.get("library"), **extra)
+
+
+def fast_bound(imgs, threshold: int) -> tuple[dict, float]:
+    """The content-aware bound of K1 / K2 on a [H, W] atlas or a [B, H, W]
+    batch, and its candidate share. Each pixel reads 2 bytes and writes 4,
+    and takes the compass pretest (4 differences, 8 pair min/max, 2
+    compares); only the candidates (``fast.compass_candidates``) need the
+    score: 16 differences, 2 x 59 van Herk min/max, 1 max and 8 NMS
+    compares. f32 operations."""
+    from slideo_tpu_torch.ops import fast
+
+    frames = imgs if imgs.dim() == 3 else imgs[None]
+    n_px = frames.numel()
+    n_cand = sum(int(fast.compass_candidates(f, threshold).sum()) for f in frames)
+    return (bound(n_px * (2 + 4), n_px * (4 + 8 + 2) + n_cand * (16 + 2 * 59 + 1 + 8), "f32"),
+            n_cand / n_px)
+
+
+def fast_case(torch, label: str, atlas, threshold: int, smi: str) -> dict:
+    """Hold K1 bit-equal to its plain version on ``atlas`` and time both;
+    returns ``kernel_row``'s keyword arguments and the candidate share."""
+    from slideo_tpu_torch.ops import cuda_fast
+
+    got = cuda_fast.fast_score_map(atlas, threshold)
+    want = cuda_fast.fast_score_map_plain(atlas, threshold)
+    torch.cuda.synchronize()
+    same = torch.equal(got, want)
+    err = float((got - want).abs().max())
+    cost, share = fast_bound(atlas, threshold)
+    print(f"[K1] {label} {tuple(atlas.shape)} {atlas.dtype}: corners {int((got > 0).sum())}, "
+          f"candidate share {share:.4f}, bit-equal {same}, max_abs_err {err}")
+    check(same, f"K1 FAST kernel is not bit-equal to its plain version ({label})")
+    kernel = lambda: cuda_fast.fast_score_map(atlas, threshold)  # noqa: E731
+    ms = cuda_ms({"kernel": kernel, "plain": lambda: cuda_fast.fast_score_map_plain(atlas, threshold)})
+    dev_ms = device_ms({"kernel": kernel}, ms)
+    print(f"[time] fast_nms {label}: kernel call {ms['kernel']:.4f} ms, device {dev_ms['kernel']:.4f} "
+          f"ms; plain {ms['plain']:.4f} ms; bound {cost['bound_ms']:.4f} ms ({cost['bound_by']}) at "
+          f"candidate share {share:.4f} ({smi})")
+    return dict(err=err, ms=ms, dev=dev_ms, cost=cost, candidate_share=share)
 
 
 def make_deck(rng: np.random.RandomState, n: int) -> np.ndarray:
@@ -334,6 +383,12 @@ def with_noise(img: np.ndarray, rng: np.random.RandomState, sigma: float) -> np.
     return np.clip(np.rint(img + rng.randn(*img.shape).astype(np.float32) * sigma), 0, 255).astype(np.uint8)
 
 
+def regime(case: dict) -> dict:
+    """A second input's numbers, as keys of a kernel row."""
+    return dict(max_abs_err=case["err"], ms=case["ms"]["kernel"], device_ms=case["dev"]["kernel"],
+                plain_ms=case["ms"]["plain"], **case["cost"], candidate_share=case["candidate_share"])
+
+
 def phase_environment(torch) -> str:
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
     if not torch.cuda.is_available():
@@ -361,33 +416,27 @@ def phase_build() -> None:
     print(f"[build] {lib._name} in {time.perf_counter() - t0:.2f} s")
 
 
-def phase_kernels(torch, deck: np.ndarray, frame: np.ndarray, smi: str) -> list[dict]:
+def phase_kernels(torch, deck: np.ndarray, frame: np.ndarray, seed: int, smi: str) -> list[dict]:
     """Each kernel against its plain version at main-path shapes."""
     from slideo_tpu_torch import DEFAULT_CONFIG
     from slideo_tpu_torch.models import orb_matcher
-    from slideo_tpu_torch.ops import cuda_fast, cuda_orb, cuda_table, cuda_warp, features, image, verify
+    from slideo_tpu_torch.ops import cuda_orb, cuda_table, cuda_warp, features, image, verify
 
     cfg = DEFAULT_CONFIG
     dev = torch.device("cuda")
     rows = []
 
-    # K1: FAST + NMS on a 1080p frame's bf16 pyramid atlas.
+    # K1: FAST + NMS on a 1080p frame's bf16 pyramid atlas, and on the
+    # pyramid of a uniform-noise frame (corner-dense: most pixels pass the
+    # pretest, so the scores bound the kernel, not the bytes).
     atlas = features.build_pyramid(torch.from_numpy(frame).to(dev).float(), cfg.orb)
-    got = cuda_fast.fast_score_map(atlas, cfg.orb.fast_threshold)
-    want = cuda_fast.fast_score_map_plain(atlas, cfg.orb.fast_threshold)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    print(f"[K1] atlas {tuple(atlas.shape)} {atlas.dtype}: corners {int((got > 0).sum())}, "
-          f"bit-equal {torch.equal(got, want)}, max_abs_err {err}")
-    check(torch.equal(got, want), "K1 FAST kernel is not bit-equal to its plain version")
-    k1 = lambda: cuda_fast.fast_score_map(atlas, cfg.orb.fast_threshold)  # noqa: E731
-    ms = cuda_ms({"kernel": k1, "plain": lambda: cuda_fast.fast_score_map_plain(atlas, cfg.orb.fast_threshold)})
-    dev_ms = device_ms({"kernel": k1}, ms)
-    # Reads the bf16 atlas once, writes the f32 map; per pixel 16 circle
-    # differences, 2 x 16 x 9 arc min/max and 8 NMS compares.
-    n_px = atlas.numel()
-    rows.append(kernel_row("fast_nms", "fast.cu", "slideo_tpu/ops/pallas_fast.py:286", err, ms,
-                           dev_ms, bound(n_px * (2 + 4), n_px * (16 + 2 * 16 * 9 + 8), "f32")))
+    noise = np.random.RandomState(seed + 2).randint(0, 256, FRAME_HW).astype(np.uint8)
+    dense = features.build_pyramid(torch.from_numpy(noise).to(dev).float(), cfg.orb)
+    k1 = fast_case(torch, "K1 frame atlas", atlas, cfg.orb.fast_threshold, smi)
+    k1["dense"] = regime(fast_case(torch, "K1 corner-dense atlas", dense, cfg.orb.fast_threshold, smi))
+    rows.append(kernel_row("fast_nms", "fast.cu", "slideo_tpu/ops/pallas_fast.py:286", **k1))
+    check_fast_edges(torch, dense, cfg.orb.fast_threshold, "csrc/fast.cu")
+    del dense
 
     # K3+K4: describe the 2048 keypoint slots of a slide.
     slide_atlas = features.build_pyramid(torch.from_numpy(deck[0]).to(dev).float(), cfg.orb)
@@ -566,6 +615,74 @@ def phase_profiler_check(torch, smi: str) -> None:
     print(f"[time] match_table Q=768 x {N_SLIDES} slides: graph replay {graph:.4f} ms, "
           f"torch.profiler kernel duration {'not recorded' if prof is None else f'{prof:.4f} ms'} "
           f"({smi})")
+
+
+def phase_compare_fast(torch, sources: list[str], seed: int, smi: str) -> None:
+    """Versions of csrc/fast.cu side by side: each source (exporting the two
+    FAST launchers with their C signatures) is built into a library of its
+    own and the versions take turns, forwards then backwards. Each is held
+    bit-equal to the plain version on the scalar-path shapes, then
+    ``fast_case`` / ``fast_batch_case`` check and time K1 on a frame's atlas
+    and a corner-dense atlas, and K2 on 8 slide and 8 corner-dense atlases."""
+    import collections
+    import ctypes
+    import re
+
+    from slideo_tpu_torch import DEFAULT_CONFIG, _kernels
+    from slideo_tpu_torch.ops import features
+
+    nvcc = _kernels._nvcc()
+    libs = {}
+    for src in sources:
+        so = _kernels._BUILD_DIR / f"compare_{len(libs)}_{Path(src).stem}.so"
+        proc = subprocess.run([nvcc, *_kernels._FLAGS, "-Xptxas", "-v", "-shared", "-o", str(so), src],
+                              capture_output=True, text=True)
+        check(proc.returncode == 0, f"nvcc failed on {src}:\n{proc.stderr}")
+        sass = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass", str(so)],
+                              capture_output=True, text=True, check=True).stdout
+        ops = collections.Counter(re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)", sass))
+        regs = [line.strip() for line in proc.stderr.splitlines() if "registers" in line]
+        print(f"[compare] {src}: {regs}; {sum(ops.values())} SASS instructions, " + ", ".join(
+            f"{op} {ops[op]}" for op in ("HMNMX2", "VHMNMX", "FMNMX", "F2FP", "LDS", "LDG", "STG")))
+        lib = ctypes.CDLL(str(so))
+        for name in ("slideo_fast_nms", "slideo_fast_nms_batch"):
+            getattr(lib, name).argtypes = _kernels._SIGNATURES[name]
+            getattr(lib, name).restype = ctypes.c_int
+        libs[src] = lib
+    thr = DEFAULT_CONFIG.orb.fast_threshold
+    rng = np.random.RandomState(seed)
+    pyramid = lambda img: features.build_pyramid(  # noqa: E731
+        torch.from_numpy(img).to("cuda").float(), DEFAULT_CONFIG.orb)
+    noise = lambda: rng.randint(0, 256, FRAME_HW).astype(np.uint8)  # noqa: E731
+    deck = make_deck(rng, 8)
+    atlas = pyramid(with_noise(warp(deck[0], rng), rng, 1.5))
+    dense = pyramid(noise())
+    slides = torch.stack([pyramid(p) for p in deck])
+    dense8 = torch.stack([pyramid(noise()) for _ in range(8)])
+    for turn, names in enumerate((sources, sources[::-1])):
+        for src in names:
+            _kernels._lib = libs[src]
+            print(f"[compare] {src}, turn {turn}")
+            check_fast_edges(torch, dense, thr, src)
+            fast_case(torch, f"{src} frame atlas", atlas, thr, smi)
+            fast_case(torch, f"{src} corner-dense atlas", dense, thr, smi)
+            fast_batch_case(torch, f"{src} 8 slides", slides, thr, smi)
+            fast_batch_case(torch, f"{src} 8 corner-dense", dense8, thr, smi)
+
+
+def check_fast_edges(torch, dense, threshold: int, tag: str) -> None:
+    """Hold K1 bit-equal to its plain version where it takes its scalar
+    loads and stores: a width that is not a multiple of 8, a pointer off the
+    16-byte grid, an image smaller than a tile (crops of ``dense``)."""
+    from slideo_tpu_torch.ops import cuda_fast
+
+    for label, img in (("odd width", dense[:1001, 3:1918].contiguous()),
+                       ("unaligned", dense.flatten()[1:1 + 400 * 640].view(400, 640)),
+                       ("7 x 9", dense[:7, :9].contiguous())):
+        same = torch.equal(cuda_fast.fast_score_map(img, threshold),
+                           cuda_fast.fast_score_map_plain(img, threshold))
+        print(f"[K1] {tag} {label} {tuple(img.shape)}: bit-equal {same}")
+        check(same, f"K1 FAST kernel ({tag}) is not bit-equal to its plain version ({label})")
 
 
 def print_row(r: dict, smi: str) -> None:
@@ -869,43 +986,60 @@ def phase_mesh(torch, deck: np.ndarray, runs, seed: int, smi: str, slice_out: di
     return row, dp["launches"], ip
 
 
-def phase_fast_batch(torch, deck: np.ndarray, runs, smi: str) -> tuple[dict, dict]:
-    """K2 on the deck's 64 page atlases, then the stage profile. Returns
-    K2's kernel row and the profile run's launches."""
+def fast_batch_case(torch, label: str, atlases, threshold: int, smi: str) -> dict:
+    """Hold K2 on a [B, H, W] batch bit-equal to B K1 launches and to its
+    plain version, and time the three; returns ``kernel_row``'s keyword
+    arguments and the candidate share."""
+    from slideo_tpu_torch.ops import cuda_fast
+
+    b = atlases.shape[0]
+    k2 = cuda_fast.fast_score_map_batch(atlases, threshold)
+    k1 = torch.stack([cuda_fast.fast_score_map(a, threshold) for a in atlases])
+    plain = cuda_fast.fast_score_map_batch_plain(atlases, threshold)
+    torch.cuda.synchronize()
+    err = float((k2 - plain).abs().max())
+    cost, share = fast_bound(atlases, threshold)
+    print(f"[K2] {label} {tuple(atlases.shape)} {atlases.dtype}: corners {int((k2 > 0).sum())}, "
+          f"candidate share {share:.4f}, bit-equal to {b} K1 launches {torch.equal(k2, k1)}, "
+          f"to the plain version {torch.equal(k2, plain)}")
+    check(torch.equal(k2, k1), f"K2 is not bit-equal to per-frame K1 launches ({label})")
+    check(torch.equal(k2, plain), f"K2 is not bit-equal to its plain version ({label})")
+    del k1, k2, plain
+    kernel = lambda: cuda_fast.fast_score_map_batch(atlases, threshold)  # noqa: E731
+    ms = cuda_ms({
+        "kernel": kernel,
+        "k1": lambda: [cuda_fast.fast_score_map(a, threshold) for a in atlases],
+        "plain": lambda: cuda_fast.fast_score_map_batch_plain(atlases, threshold),
+    }, reps=3)
+    dev_ms = device_ms({"kernel": kernel}, ms, reps=3)
+    print(f"[time] fast_nms_batch {label}: K2 call {ms['kernel']:.4f} ms, device "
+          f"{dev_ms['kernel']:.4f} ms; {b} K1 launches {ms['k1']:.4f} ms; plain {ms['plain']:.4f} "
+          f"ms; bound {cost['bound_ms']:.4f} ms ({cost['bound_by']}) at candidate share "
+          f"{share:.4f} ({smi})")
+    return dict(err=err, ms=ms, dev=dev_ms, cost=cost, candidate_share=share)
+
+
+def phase_fast_batch(torch, deck: np.ndarray, runs, seed: int, smi: str) -> tuple[dict, dict]:
+    """K2 on the deck's 64 page atlases and on 8 corner-dense atlases (the
+    pyramids of uniform-noise frames), then the stage profile. Returns K2's
+    kernel row and the profile run's launches."""
     from slideo_tpu_torch import DEFAULT_CONFIG, _kernels
-    from slideo_tpu_torch.ops import cuda_fast, features
+    from slideo_tpu_torch.ops import features
     from slideo_tpu_torch.tools import profile_stages
 
     cfg = DEFAULT_CONFIG
     thr = cfg.orb.fast_threshold
     dev = torch.device("cuda")
-    atlases = torch.stack([
-        features.build_pyramid(torch.from_numpy(p).to(dev).float(), cfg.orb) for p in deck
-    ])
-    k2 = cuda_fast.fast_score_map_batch(atlases, thr)
-    k1 = torch.stack([cuda_fast.fast_score_map(a, thr) for a in atlases])
-    plain = cuda_fast.fast_score_map_batch_plain(atlases, thr)
-    torch.cuda.synchronize()
-    err = float((k2 - plain).abs().max())
-    print(f"[K2] atlases {tuple(atlases.shape)} {atlases.dtype}: corners {int((k2 > 0).sum())}, "
-          f"bit-equal to {len(deck)} K1 launches {torch.equal(k2, k1)}, to the plain version "
-          f"{torch.equal(k2, plain)}")
-    check(torch.equal(k2, k1), "K2 is not bit-equal to per-frame K1 launches")
-    check(torch.equal(k2, plain), "K2 is not bit-equal to its plain version")
-    del k1, plain
-    ms = cuda_ms({
-        "kernel": lambda: cuda_fast.fast_score_map_batch(atlases, thr),
-        "k1": lambda: [cuda_fast.fast_score_map(a, thr) for a in atlases],
-        "plain": lambda: cuda_fast.fast_score_map_batch_plain(atlases, thr),
-    }, reps=3)
-    print(f"[time] fast_nms_batch x{len(deck)}: K2 {ms['kernel']:.4f} ms, {len(deck)} K1 launches "
-          f"{ms['k1']:.4f} ms, plain {ms['plain']:.4f} ms ({smi})")
-    n_px = atlases.numel()
-    dev_ms = device_ms({"kernel": lambda: cuda_fast.fast_score_map_batch(atlases, thr)}, ms, reps=3)
-    row = kernel_row("fast_nms_batch", "fast.cu", "slideo_tpu/ops/pallas_fast.py:340", err, ms, dev_ms,
-                     bound(n_px * (2 + 4), n_px * (16 + 2 * 16 * 9 + 8), "f32"))
+    pyramid = lambda img: features.build_pyramid(torch.from_numpy(img).to(dev).float(), cfg.orb)  # noqa: E731
+    atlases = torch.stack([pyramid(p) for p in deck])
+    k2 = fast_batch_case(torch, f"deck of {len(deck)}", atlases, thr, smi)
+    del atlases
+    rng = np.random.RandomState(seed + 3)
+    dense = torch.stack([pyramid(rng.randint(0, 256, FRAME_HW).astype(np.uint8)) for _ in range(8)])
+    k2["dense"] = regime(fast_batch_case(torch, "8 corner-dense", dense, thr, smi))
+    del dense
+    row = kernel_row("fast_nms_batch", "fast.cu", "slideo_tpu/ops/pallas_fast.py:340", **k2)
     print_row(row, smi)
-    del atlases, k2
 
     frames = np.stack([f for _, fs in runs for f in fs][:4 * 8])
     _kernels.reset_launches()
@@ -924,6 +1058,8 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0, help="seed of the synthetic deck and stream")
     ap.add_argument("--profiler-check", action="store_true",
                     help="only cross-check K5's device ms with torch.profiler, then exit")
+    ap.add_argument("--compare-fast", nargs="+", metavar="SOURCE",
+                    help="only time these versions of csrc/fast.cu against each other, then exit")
     args = ap.parse_args()
 
     import torch
@@ -934,19 +1070,22 @@ def main() -> None:
     if args.profiler_check:
         phase_profiler_check(torch, smi)
         return
+    if args.compare_fast:
+        phase_compare_fast(torch, args.compare_fast, args.seed, smi)
+        return
     rng = np.random.RandomState(args.seed)
     t0 = time.perf_counter()
     deck = make_deck(rng, N_SLIDES)
     runs = make_stream(rng, deck)
     print(f"[data] deck {deck.shape} and {sum(len(f) for _, f in runs)} frames made in "
           f"{time.perf_counter() - t0:.2f} s (host)")
-    rows = phase_kernels(torch, deck, runs[0][1][0], smi)
+    rows = phase_kernels(torch, deck, runs[0][1][0], args.seed, smi)
     slice_out = phase_slice(torch, deck, runs, args.seed, smi)
     screen_row, screened_launches, exact = phase_screened(torch, args.seed, smi)
     shard_row, dp_launches, ip_launches = phase_mesh(
         torch, deck, runs, args.seed, smi, slice_out, exact)
     del exact
-    k2_row, profile_launches = phase_fast_batch(torch, deck, runs, smi)
+    k2_row, profile_launches = phase_fast_batch(torch, deck, runs, args.seed, smi)
     rows += [screen_row, shard_row, k2_row]
     # Each kernel's launches over every path of this run; the table
     # launches of the index-parallel step are K5 (c)'s.

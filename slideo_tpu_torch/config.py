@@ -12,7 +12,8 @@ rating cascade lib.rs:333, similarity lib.rs:381, dedup video_capture.rs:98,
 Fields that only tune the JAX package's TPU kernels (``fast_polarity_fused``,
 ``fast_chunk_w``, ``fast_sparse_skip``, ``fast_min_first``,
 ``describe_pass2``, ``cascade_viable_prefix``, ``knn_chunk``) are kept for
-the equal field set; the port reads none of them. Options the port does not
+the equal field set; the port reads none of them (no ``fast_sparse_skip``:
+kernel K1's compass pretest is exact and always runs). Options the port does not
 run raise ``NotImplementedError`` where they are read.
 """
 
