@@ -20,7 +20,10 @@ Phases:
    an unaligned view and a 7 x 9 image), K3+K4, K5 (bit-equal at Q=768
    and Q=2048 x 64 slides, and on an adversarial index made to break its
    tie rule, over all slides and over a slide list with repeated ids), K6
-   (10 candidates at stride 2, one mapping partly outside the frame).
+   (10 candidates at stride 2, one mapping partly outside the frame), K6h
+   (K6's homography form: 10 perspective candidates at stride 2, one
+   mapping partly outside, one whose denominator crosses zero inside the
+   grid; timed against ``grid_sample`` on the same points).
 4. The exact-table path: a synthetic 64-slide 1080x1920 deck indexed by
    ``MatchingEngine``, 88 sampled 1080p frames (runs of warped slides,
    noise, blank) streamed through ``match_samples``, the timeline written
@@ -53,6 +56,19 @@ Phases:
    launches and to its plain version, timed against both; then the stage profile
    (``slideo_tpu_torch.tools.profile_stages``, batch 8) on that deck and
    the first 32 frames of phase 4's stream.
+8. The SIFT engine (``SlideoConfig(engine="sift")``, default ``SiftConfig``:
+   2048 keypoints over 5 octaves). (a) Phase 4's 64-slide deck and a stream
+   of 12 runs x 2 frames, each a slide under a homography that moves each
+   corner by up to 4% of the width, plus 2 noise and 2 blank runs, through
+   ``match_samples`` and ``Db``: every warped run gets its page, noise and
+   blank none, and the run launched ``warp_homography`` (K6h) and not
+   ``warp``. (b) The first 250 slides of phase 5's reveal deck (50
+   families) and 8 families x 3 adjacent members x 2 perspective frames
+   plus noise and blank runs: the screened run (stage 1 by
+   ``screen_slides_float``) and the exact run assign every frame the same
+   slide. Each prints its frames/s and a per-stage split of
+   ``match_frames_sift`` (features, table, select + RANSAC, verify) from
+   CUDA events.
 
 ``python3 chip_smoke.py --profiler-check`` runs phases 1 and 2 and then
 only the cross-check of the device-time method: K5's graph-replay device
@@ -65,10 +81,10 @@ and 2 and then only times versions of ``csrc/fast.cu`` (the checked-in one
 or edited copies keeping its two launchers) against each other in turns,
 each held bit-equal to the plain version first.
 
-Every path (phases 4, 5 screened, 6a, 6b, 7's profile) runs with the
-launch counts set to 0 just before it and read just after; a kernel's
-``launches`` is its count summed over them, where the table launches of
-6b are K5 (c)'s and the others K5 (a)'s. Every kernel has two times: call
+Every path (phases 4, 5 screened, 6a, 6b, 7's profile, 8a, 8b screened
+and exact) runs with the launch counts set to 0 just before it and read
+just after; a kernel's ``launches`` is its count summed over them, where
+the table launches of 6b are K5 (c)'s and the others K5 (a)'s. Every kernel has two times: call
 ms (``cuda_ms``: one wrapper call between two CUDA events, the wrapper's
 host work included) and device ms (``device_ms``: N calls captured in a
 CUDA graph and replayed between two events, divided by N), and so has the
@@ -104,6 +120,7 @@ N_SLIDES = 64
 RUN_LEN = 4          # sampled frames per run (the dedup drops repeats)
 FPS, INTERVAL = 25, 5.0
 SCREENED_PAGES, PER_FAMILY = 100, 5   # 500 slides: 100 pages x 5 reveals
+SIFT_SLIDES = 250    # phase 8 (b): the first 50 pages' families of that deck
 
 # Peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W): the bound
 # of a kernel is the larger of its bytes over the memory rate and its
@@ -554,9 +571,80 @@ def phase_kernels(torch, deck: np.ndarray, frame: np.ndarray, seed: int, smi: st
     rows.append(kernel_row(
         "warp_sample", "warp.cu", "slideo_tpu/ops/pallas_warp.py:86", err, ms, dev_ms,
         bound(small.numel() * 4 + 16 * got.shape[0] + 4 * n_pt, 32 * n_pt, "f32")))
+    rows.append(k6h_case(torch, small, grid, smi))
     for r in rows:
         print_row(r, smi)
     return rows
+
+
+def homography_params(torch, dev, t: int, seed: int = 7):
+    """[t, 8] homographies (full-res slide -> frame coords) like the ones
+    RANSAC hands the SIFT engine's verification: ``verify_transforms``'
+    similarities with a perspective row of up to 2e-5 per px (a corner of a
+    1920-wide slide moved by about 4% of the width). The last is shifted
+    700 px right, so part of its grid maps outside the frame; the one
+    before it has h6 = -1/1000, so its denominator w crosses zero at
+    x = 1000, inside the grid."""
+    sim = verify_transforms(torch, dev, t, seed)
+    rng = np.random.RandomState(seed + 100)
+    persp = rng.uniform(-2e-5, 2e-5, (t, 2))
+    persp[-2] = (-1e-3, 0.0)
+    h = np.stack([
+        sim.a.cpu().numpy(), -sim.b.cpu().numpy(), sim.tx.cpu().numpy(),
+        sim.b.cpu().numpy(), sim.a.cpu().numpy(), sim.ty.cpu().numpy(),
+        persp[:, 0], persp[:, 1],
+    ], axis=1).astype(np.float32)
+    return torch.from_numpy(h).to(dev)
+
+
+def k6h_case(torch, small, grid, smi: str) -> dict:
+    """K6h (``warp_sample_homography``) against its plain version and
+    ``grid_sample`` on 10 homographies at the main path's shapes; returns
+    its kernel row."""
+    from slideo_tpu_torch.ops import cuda_warp, verify
+
+    hs, ws = small.shape
+    hp = homography_params(torch, small.device, 10)
+    got = cuda_warp.warp_sample_homography(small, hp, grid)
+    want = verify.warp_sample_homography_plain(small, hp, grid)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    sxp, syp = verify.warp_coords_homography(hp, grid, small.device)
+    inb = (sxp >= 0) & (sxp <= ws - 1) & (syp >= 0) & (syp <= hs - 1)
+    gx = ((torch.arange(grid.out_w, device=small.device) * grid.stride + 0.5) * grid.sx - 0.5)
+    w_row = hp[-2, 6] * gx + 1.0
+    n_pt = got.numel()
+    print(f"[K6h] image {tuple(small.shape)}, {got.shape[0]} homographies x {grid.out_h}x{grid.out_w} "
+          f"points: max_abs_err {err}, {int((got != want).sum())} of {n_pt} points differ, "
+          f"{int((~inb).sum())} outside (kernel nonzero there: {int((got[~inb] != 0).sum())}, "
+          f"plain: {int((want[~inb] != 0).sum())}); candidate 9 has w <= 0 on "
+          f"{int((w_row <= 0).sum())} of {grid.out_w} grid columns")
+    check(err <= 1e-3, f"K6h warp kernel differs from its plain version by {err} > 1e-3")
+    check(bool((got[~inb] == 0).all()) and bool((want[~inb] == 0).all()),
+          "K6h: a point outside the image is not 0")
+    check(bool((~inb[-1]).any()) and bool(inb[-1].any()),
+          "the last K6h candidate does not map partly outside the image")
+    check(bool((w_row <= 0).any()) and bool((w_row > 0).any()),
+          "the K6h candidate with h6 = -1/1000 does not cross w = 0 inside the grid")
+    gs_grid = torch.stack([sxp * (2.0 / (ws - 1)) - 1.0, syp * (2.0 / (hs - 1)) - 1.0],
+                          dim=-1).reshape(1, -1, grid.out_w, 2)
+    img4 = small[None, None]
+    library = lambda: torch.nn.functional.grid_sample(  # noqa: E731
+        img4, gs_grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+    lib = library().reshape(got.shape)
+    print(f"[K6h] grid_sample vs kernel on the {int(inb.sum())} points inside the image: "
+          f"max_abs_diff {float((lib - got)[inb].abs().max())}")
+    kernel = lambda: cuda_warp.warp_sample_homography(small, hp, grid)  # noqa: E731
+    ms = cuda_ms({"kernel": kernel, "plain": lambda: verify.warp_sample_homography_plain(small, hp, grid),
+                  "library": library})
+    dev_ms = device_ms({"kernel": kernel, "library": library}, ms)
+    # Reads the thumbnail once and 32 B of homography per candidate, writes
+    # one value per point; ~16 f32 operations per point to form it (the
+    # divides counted as one each) and ~20 to sample it.
+    return kernel_row(
+        "warp_sample_homography", "warp.cu", "slideo_tpu/ops/pallas_warp.py:86", err, ms, dev_ms,
+        bound(small.numel() * 4 + 32 * got.shape[0] + 4 * n_pt, 36 * n_pt, "f32"),
+        call_site="slideo_tpu/ops/verify.py:199")
 
 
 def table_bound(q: int, n_cols: int, k: int) -> dict:
@@ -716,15 +804,17 @@ def phase_slice(torch, deck: np.ndarray, runs, seed: int, smi: str) -> dict:
 
 
 def drive_engine(torch, cfg, deck: np.ndarray, runs, seed: int, smi: str, tag: str,
-                 mesh_devices=None) -> dict:
+                 mesh_devices=None, strict: bool = True) -> dict:
     """Index ``deck`` with ``MatchingEngine`` (on a frame-parallel mesh of
     ``mesh_devices`` when given, else on cuda:0 alone, however many cards
     there are) and stream the runs' frames through
     ``match_samples``, with every launch count set to 0 just before and
     read just after; write the timeline through the port's ``Db``, read it
-    back and check it against the runs. Returns the launches, the frame ->
-    page rows of every matched frame (the engine's checkpoint rows), the
-    sampled frames by index, the timeline rows and the engine."""
+    back and check it against the runs (with ``strict`` False, check only
+    that every changed frame got its run's page: dedup may merge runs of
+    near-duplicate slides in the timeline). Returns the launches, the
+    frame -> page rows of every matched frame (the engine's checkpoint
+    rows), the sampled frames by index, the timeline rows and the engine."""
     from slideo_tpu_torch import _kernels
     from slideo_tpu_torch.app.db import Db
     from slideo_tpu_torch.app.pipeline import MatchingEngine, PdfPage
@@ -788,18 +878,32 @@ def drive_engine(torch, cfg, deck: np.ndarray, runs, seed: int, smi: str, tag: s
     got = [(ms, page if h is not None else None) for ms, h, page in rows]
     print(f"[{tag}] timeline ({len(got)} rows): {got}")
     check(all(h in (pdf_hash, None) for _, h, _ in rows), f"{tag}: rows name a foreign pdf hash")
-    check(got == want, f"{tag}: timeline differs from the stream's runs: want {want}")
+    if strict:
+        check(got == want, f"{tag}: timeline differs from the stream's runs: want {want}")
+    else:
+        assigned = dict(matched)
+        first = 0
+        resolved = 0
+        for page, frames in runs:
+            idx = range(first, first + len(frames))
+            first += len(frames)
+            resolved += all(assigned.get(i * int(FPS * INTERVAL), page) == page for i in idx)
+        print(f"[{tag}] {resolved} of {len(runs)} runs got their page on every changed frame")
+        check(resolved == len(runs), f"{tag}: {len(runs) - resolved} runs had a changed frame "
+              "matched to another page")
     check(rows[-1][1] is None and rows[-1][0] == total_ms, f"{tag}: the sentinel row is not last")
     return dict(launches=launches, matched=matched, frames={i: f for i, _, f in samples},
                 timeline=got, engine=engine)
 
 
-def make_reveal_deck(rng: np.random.RandomState) -> np.ndarray:
-    """[SCREENED_PAGES * PER_FAMILY, 1080, 1920] uint8 near-duplicate deck:
-    each ``make_deck`` page revealed line by line, slide j of a family
-    showing the rows above the j-th cut (white below), the last slide the
-    whole page. Adjacent family members differ in one band of text lines."""
-    pages = make_deck(rng, SCREENED_PAGES)
+def make_reveal_deck(rng: np.random.RandomState, n_pages: int = SCREENED_PAGES) -> np.ndarray:
+    """[n_pages * PER_FAMILY, 1080, 1920] uint8 near-duplicate deck: each
+    ``make_deck`` page revealed line by line, slide j of a family showing
+    the rows above the j-th cut (white below), the last slide the whole
+    page. Adjacent family members differ in one band of text lines. The
+    first pages do not depend on ``n_pages``: ``make_deck`` draws page by
+    page."""
+    pages = make_deck(rng, n_pages)
     h = FRAME_HW[0]
     top, bottom = 220, h - 90                     # make_deck's lines lie in between
     cuts = [top + (bottom - top) * (j + 1) // PER_FAMILY for j in range(PER_FAMILY - 1)] + [h]
@@ -1053,6 +1157,139 @@ def phase_fast_batch(torch, deck: np.ndarray, runs, seed: int, smi: str) -> tupl
     return row, launches
 
 
+def homography_4pt(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
+    """The 3 x 3 homography (h8 = 1) taking the 4 points src to dst."""
+    a, b = [], []
+    for (x, y), (u, v) in zip(src, dst):
+        a += [[x, y, 1, 0, 0, 0, -u * x, -u * y], [0, 0, 0, x, y, 1, -v * x, -v * y]]
+        b += [u, v]
+    return np.append(np.linalg.solve(np.array(a, np.float64), np.array(b, np.float64)), 1.0).reshape(3, 3)
+
+
+def perspective(torch, page: np.ndarray, rng: np.random.RandomState) -> np.ndarray:
+    """The page as an off-axis camera sees it: each corner moved by up to
+    4% of the width, sampled bilinearly on the card (float32, 230 outside
+    the page, before noise)."""
+    h, w = FRAME_HW
+    src = np.array([[0, 0], [w, 0], [w, h], [0, h]], np.float64)
+    dst = src + rng.uniform(-0.04 * w, 0.04 * w, (4, 2))
+    hi = torch.tensor(np.linalg.inv(homography_4pt(src, dst)), dtype=torch.float64, device="cuda")
+    ys, xs = torch.meshgrid(torch.arange(h, device="cuda", dtype=torch.float64),
+                            torch.arange(w, device="cuda", dtype=torch.float64), indexing="ij")
+    den = hi[2, 0] * xs + hi[2, 1] * ys + hi[2, 2]
+    u = (hi[0, 0] * xs + hi[0, 1] * ys + hi[0, 2]) / den
+    v = (hi[1, 0] * xs + hi[1, 1] * ys + hi[1, 2]) / den
+    inside = (u >= 0) & (u <= w - 1) & (v >= 0) & (v <= h - 1)
+    grid = torch.stack([u / (w - 1) * 2 - 1, v / (h - 1) * 2 - 1], dim=-1).float()[None]
+    img = torch.from_numpy(page).to("cuda").float()[None, None]
+    out = torch.nn.functional.grid_sample(img, grid, mode="bilinear", padding_mode="zeros",
+                                          align_corners=True)[0, 0]
+    return torch.where(inside, out, 230.0).cpu().numpy()
+
+
+def make_sift_stream(torch, rng: np.random.RandomState, deck: np.ndarray, n_runs: int = 12):
+    """Runs of 2 sampled frames, each a slide in perspective with noise of
+    sigma 1.5, and a noise and a blank run after the 4th and 9th."""
+    runs: list[tuple[int | None, list[np.ndarray]]] = []
+    for i, s in enumerate(rng.permutation(len(deck))[:n_runs].tolist()):
+        runs.append((s, [with_noise(perspective(torch, deck[s], rng), rng, 1.5) for _ in range(2)]))
+        if i in (3, 8):
+            runs.append((None, [rng.randint(0, 256, FRAME_HW).astype(np.uint8) for _ in range(2)]))
+            runs.append((None, [np.full(FRAME_HW, 128, np.uint8) for _ in range(2)]))
+    return runs
+
+
+def make_sift_family_stream(torch, rng: np.random.RandomState, deck: np.ndarray, n_families: int = 8):
+    """``make_screened_stream`` in perspective: three adjacent members of
+    each of ``n_families`` families, two frames each (each its own camera
+    pose), and a noise and a blank run after the 3rd and 6th family."""
+    runs: list[tuple[int | None, list[np.ndarray]]] = []
+    for i, fam in enumerate(rng.permutation(len(deck) // PER_FAMILY)[:n_families].tolist()):
+        first = rng.randint(0, PER_FAMILY - 2)
+        for j in range(first, first + 3):
+            s = fam * PER_FAMILY + j
+            runs.append((s, [with_noise(perspective(torch, deck[s], rng), rng, 1.5) for _ in range(2)]))
+        if i in (2, 5):
+            runs.append((None, [rng.randint(0, 256, FRAME_HW).astype(np.uint8) for _ in range(2)]))
+            runs.append((None, [np.full(FRAME_HW, 128, np.uint8) for _ in range(2)]))
+    return runs
+
+
+def sift_stage_split(torch, engine, frames: list[np.ndarray], cfg, smi: str, tag: str) -> None:
+    """Per-frame device-timeline ms of the stages of ``match_frame_sift``
+    (features, table with stage 1 when screened, select + RANSAC, verify),
+    between CUDA events, medians over ``frames``."""
+    from slideo_tpu_torch.models import sift_matcher
+    from slideo_tpu_torch.ops import ransac
+
+    names = ("features", "table", "select+ransac", "verify")
+    times = {n: [] for n in names}
+    for i, f in enumerate(frames):
+        fr = torch.from_numpy(f).to("cuda")
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        feats, small = sift_matcher.frame_features(fr, cfg)
+        ev[1].record()
+        table = sift_matcher.sift_table(feats, engine.index, cfg)
+        ev[2].record()
+        u = ransac.uniform_draws(min(cfg.match.top_slides, table.dist.shape[1]), cfg.match, i,
+                                 fr.device, n_points=4)
+        rated = sift_matcher.rate_candidates(feats, table, engine.index, u, cfg)
+        ev[3].record()
+        sift_matcher.verify_winner(small, FRAME_HW, rated, engine.index, engine.slide_hw, cfg)
+        ev[4].record()
+        ev[4].synchronize()
+        for k, n in enumerate(names):
+            times[n].append(ev[k].elapsed_time(ev[k + 1]))
+    med = {n: float(np.median(t)) for n, t in times.items()}
+    print(f"[{tag}] stage split of match_frame_sift, median ms/frame over {len(frames)} frames: "
+          + ", ".join(f"{n} {m:.3f}" for n, m in med.items())
+          + f"; sum {sum(med.values()):.3f} ({smi})")
+
+
+def phase_sift(torch, deck: np.ndarray, seed: int, smi: str) -> list[dict]:
+    """(a) the SIFT engine on phase 4's deck, (b) screened == exact on the
+    first 250 slides of phase 5's reveal deck (made again from phase 5's
+    seed, so no earlier phase holds it); returns the three runs' launches,
+    (a)'s first."""
+    import dataclasses
+
+    from slideo_tpu_torch import DEFAULT_CONFIG
+
+    cfg = dataclasses.replace(DEFAULT_CONFIG, engine="sift")
+    rng = np.random.RandomState(seed + 4)
+    t0 = time.perf_counter()
+    runs = make_sift_stream(torch, rng, deck)
+    print(f"[sift64] {sum(len(f) for _, f in runs)} perspective frames made in "
+          f"{time.perf_counter() - t0:.2f} s")
+    a = drive_engine(torch, cfg, deck, runs, seed, smi, "sift64")
+    check(a["launches"]["warp_homography"] > 0, "K6h was never launched by the SIFT run")
+    check(a["launches"]["warp"] == 0, "the SIFT run launched the similarity form of K6")
+    sift_stage_split(torch, a["engine"], [f for _, fs in runs[:8] for f in fs[:1]], cfg, smi, "sift64")
+    launches = [a["launches"]]
+    del a
+
+    deck250 = make_reveal_deck(np.random.RandomState(seed + 1), SIFT_SLIDES // PER_FAMILY)
+    runs = make_sift_family_stream(torch, rng, deck250)
+    check(len(deck250) > cfg.match.screen_above_slides, "the 250-slide deck does not take stage 1")
+    screened = drive_engine(torch, cfg, deck250, runs, seed, smi, "sift250", strict=False)
+    sift_stage_split(torch, screened["engine"], [f for _, fs in runs[:8] for f in fs[:1]], cfg,
+                     smi, "sift250")
+    screened["engine"] = None
+    exact_cfg = dataclasses.replace(
+        cfg, match=dataclasses.replace(cfg.match, screen_above_slides=len(deck250) + 1))
+    exact = drive_engine(torch, exact_cfg, deck250, runs, seed, smi, "sift250-exact", strict=False)
+    exact["engine"] = None
+    diffs = [(x, y) for x, y in zip(screened["matched"], exact["matched"]) if x != y]
+    print(f"[sift250] screened vs exact assignments: {len(screened['matched'])} frames, "
+          f"{len(diffs)} differences {diffs}")
+    check(len(screened["matched"]) == len(exact["matched"]) and not diffs,
+          "SIFT screened and exact assignments differ")
+    for run in (screened, exact):
+        check(run["launches"]["warp_homography"] > 0, "K6h was never launched by a 250-slide SIFT run")
+    return launches + [screened["launches"], exact["launches"]]
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the synthetic deck and stream")
@@ -1086,14 +1323,17 @@ def main() -> None:
         torch, deck, runs, args.seed, smi, slice_out, exact)
     del exact
     k2_row, profile_launches = phase_fast_batch(torch, deck, runs, args.seed, smi)
+    sift_launches = phase_sift(torch, deck, args.seed, smi)
     rows += [screen_row, shard_row, k2_row]
     # Each kernel's launches over every path of this run; the table
     # launches of the index-parallel step are K5 (c)'s.
-    paths = [slice_out["launches"], screened_launches, dp_launches, ip_launches, profile_launches]
+    paths = [slice_out["launches"], screened_launches, dp_launches, ip_launches, profile_launches,
+             *sift_launches]
     counted = {name: sum(p[name] for p in paths) for name in paths[0]}
     counted["table"] -= ip_launches["table"]
     by_name = {"fast_nms": "fast", "orb_describe": "orb", "match_table": "table",
-               "warp_sample": "warp", "screen_scores": "screen", "fast_nms_batch": "fast_batch"}
+               "warp_sample": "warp", "screen_scores": "screen", "fast_nms_batch": "fast_batch",
+               "warp_sample_homography": "warp_homography"}
     for r in rows:
         r["launches"] = (ip_launches["table"] if r["name"] == "match_table_shard"
                          else counted[by_name[r["name"]]])

@@ -1,4 +1,5 @@
-"""slideo-tpu on PyTorch + CUDA: the ORB match path for one NVIDIA H100.
+"""slideo-tpu on PyTorch + CUDA: both match engines (ORB, and SIFT for
+slides filmed in perspective) for one NVIDIA H100.
 
 A port of the JAX package ``slideo_tpu`` that stands on its own: it imports
 ``torch`` and never ``jax``, and nothing of ``slideo_tpu``. It keeps its own
@@ -9,8 +10,11 @@ from .config import (  # noqa: F401
     DEFAULT_CONFIG,
     MatchConfig,
     OrbConfig,
+    SiftConfig,
     SlideoConfig,
     VideoConfig,
 )
 
-__all__ = ["DEFAULT_CONFIG", "MatchConfig", "OrbConfig", "SlideoConfig", "VideoConfig"]
+__all__ = [
+    "DEFAULT_CONFIG", "MatchConfig", "OrbConfig", "SiftConfig", "SlideoConfig", "VideoConfig",
+]

@@ -1,10 +1,11 @@
 """End-to-end sync: slide deck + videos -> (video_ms -> page) timelines.
 
-Port of ``slideo_tpu/app/pipeline.py`` for the ORB engine. The deck is
-indexed on the device once; sampled frames stream through in
-``VideoConfig.batch_size`` batches, a dedup pass on thumbnails drops frames
-that did not change (reference lib.rs:205-209), and the changed ones are
-matched, on one device or over a frame-parallel mesh of several
+Port of ``slideo_tpu/app/pipeline.py`` for both engines: ORB (the
+default) and SIFT (``SlideoConfig(engine="sift")``, for camera-recorded
+talks seen in perspective). The deck is indexed on the device once;
+sampled frames stream through in ``VideoConfig.batch_size`` batches, a
+dedup pass on thumbnails drops frames that did not change (reference
+lib.rs:205-209), and the changed ones are matched, on one device or over a frame-parallel mesh of several
 (``parallel/mesh.py``). The output keeps the reference's contract: a
 sentinel no-match record at the video end (lib.rs:182-189), sorted by time,
 consecutive duplicates dropped (lib.rs:229-244). Rows are written through
@@ -37,7 +38,7 @@ import torch
 
 from ..config import SlideoConfig
 from ..io import pdf as pdf_io
-from ..models import orb_matcher
+from ..models import orb_matcher, sift_matcher
 from ..ops import image as image_ops
 from ..parallel import mesh as mesh_mod
 from .db import Db, PdfExtractedPagesDir
@@ -131,7 +132,8 @@ def _load_page_grays(pages: list[PdfPage]) -> np.ndarray:
 
 
 class MatchingEngine:
-    """Device-resident ORB matcher for one deck of slides."""
+    """Device-resident matcher for one deck of slides, with the engine
+    ``cfg.engine`` names ("orb" or "sift")."""
 
     # Pages per upload during the index build (bounds device memory).
     _BUILD_CHUNK = 32
@@ -157,10 +159,11 @@ class MatchingEngine:
         the JAX package's is on, because this threaded mesh is slower than
         one card on every workload measured so far (PERF.md).
         """
-        if cfg.engine != "orb":
-            raise NotImplementedError(f"engine {cfg.engine!r}: only 'orb' is ported")
-        # The resizes and similarities are f32 products: TF32 would move
-        # them off the reference's numbers.
+        if cfg.engine not in ("orb", "sift"):
+            raise ValueError(f"engine {cfg.engine!r}: expected 'orb' or 'sift'")
+        # The resizes, similarities, SIFT's blurs and its float table are f32
+        # products and convolutions: TF32 would move them off the
+        # reference's numbers.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.cfg = cfg
@@ -176,7 +179,12 @@ class MatchingEngine:
         chunks = (
             grays[c:c + self._BUILD_CHUNK] for c in range(0, len(pages), self._BUILD_CHUNK)
         )
-        self.index = orb_matcher.build_slide_index_from_chunks(chunks, cfg, self.device)
+        if cfg.engine == "sift":
+            self.index = sift_matcher.build_slide_index_sift_from_chunks(chunks, cfg, self.device)
+            self._match_frames = sift_matcher.match_frames_sift
+        else:
+            self.index = orb_matcher.build_slide_index_from_chunks(chunks, cfg, self.device)
+            self._match_frames = orb_matcher.match_frames
         self.mesh = _frame_mesh(self.device, mesh_devices)
         self._replicas = (
             None if self.mesh is None else mesh_mod.replicate_index(self.mesh, self.index)
@@ -190,16 +198,15 @@ class MatchingEngine:
         with copies of the last frame under seed 0 (``pipeline.py:707-712``),
         and their results are dropped."""
         if self.mesh is None:
-            return orb_matcher.match_frames(
-                frames, frame_seeds, self.index, self.slide_hw, self.cfg
-            )
+            return self._match_frames(frames, frame_seeds, self.index, self.slide_hw, self.cfg)
         n = frames.shape[0]
         pad = -n % self.mesh.size
         if pad:
             frames = torch.cat([frames, frames[-1:].expand(pad, -1, -1)])
             frame_seeds = list(frame_seeds) + [0] * pad
         res = mesh_mod.match_frames_sharded(
-            self.mesh, frames, frame_seeds, self._replicas, self.slide_hw, self.cfg
+            self.mesh, frames, frame_seeds, self._replicas, self.slide_hw, self.cfg,
+            match_frames=self._match_frames,
         )
         return orb_matcher.FrameMatch(*(f[:n] for f in res))
 

@@ -9,12 +9,16 @@ reference's value, because the frame -> page assignments depend on them
 rating cascade lib.rs:333, similarity lib.rs:381, dedup video_capture.rs:98,
 5 s sampling lib.rs:145, thumbnail area image_utils.rs:11).
 
-Fields that only tune the JAX package's TPU kernels (``fast_polarity_fused``,
-``fast_chunk_w``, ``fast_sparse_skip``, ``fast_min_first``,
-``describe_pass2``, ``cascade_viable_prefix``, ``knn_chunk``) are kept for
-the equal field set; the port reads none of them (no ``fast_sparse_skip``:
-kernel K1's compass pretest is exact and always runs). Options the port does not
-run raise ``NotImplementedError`` where they are read.
+Both engines of the JAX package are ported: ``engine="orb"`` (the
+default) and ``engine="sift"``. Fields that only tune the JAX package's TPU
+kernels (``fast_polarity_fused``, ``fast_chunk_w``, ``fast_sparse_skip``,
+``fast_min_first``, ``describe_pass2``, ``cascade_viable_prefix``,
+``knn_chunk``) are kept for the equal field set; the port reads none of
+them (no ``fast_sparse_skip``: kernel K1's compass pretest is exact and
+always runs). Options the port does not run raise ``NotImplementedError``
+where they are read: ``screen_prevote``, ``screen_bits`` other than 128,
+``screen_k_per_slide`` below the deck's keypoints per slide on the per-frame
+screened path, and the "chunk" and "seek" decode modes.
 """
 
 from __future__ import annotations
@@ -108,7 +112,9 @@ class MatchConfig:
 
 @dataclasses.dataclass(frozen=True)
 class SiftConfig:
-    """SIFT-family features (the JAX package's second engine; not ported)."""
+    """SIFT-family features of the second engine (``engine="sift"``): DoG
+    keypoints over ``n_octaves`` octaves, 128-d descriptors, Lowe's ratio
+    per slide and homography verification."""
 
     max_keypoints: int = 2048
     n_octaves: int = 5
@@ -142,7 +148,7 @@ class SlideoConfig:
     sift: SiftConfig = dataclasses.field(default_factory=SiftConfig)
     match: MatchConfig = dataclasses.field(default_factory=MatchConfig)
     video: VideoConfig = dataclasses.field(default_factory=VideoConfig)
-    engine: str = "orb"             # feature engine: only "orb" is ported
+    engine: str = "orb"             # feature engine: "orb" or "sift"
 
 
 DEFAULT_CONFIG = SlideoConfig()

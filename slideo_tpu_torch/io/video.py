@@ -14,8 +14,8 @@ from __future__ import annotations
 import threading
 from dataclasses import dataclass
 from pathlib import Path
-from queue import Queue
-from typing import Iterator
+from queue import Full, Queue
+from typing import Iterator, NamedTuple
 
 import cv2
 import numpy as np
@@ -98,8 +98,17 @@ def _sampled_frames_grab(
         cap.release()
 
 
+class _Failed(NamedTuple):
+    """The exception that ended a prefetched iterator."""
+
+    error: Exception
+
+
 def _prefetched(it: Iterator[SampledFrame], depth: int = 16) -> Iterator[SampledFrame]:
-    """Run an iterator in a background thread behind a bounded queue."""
+    """Run an iterator in a background thread behind a bounded queue. An
+    exception raised by the iterator reaches the consumer, raised where the
+    stream would have ended: a decode error never passes for a normal end
+    of the video."""
     q: Queue = Queue(maxsize=depth)
     stop = threading.Event()
     end = object()
@@ -109,17 +118,20 @@ def _prefetched(it: Iterator[SampledFrame], depth: int = 16) -> Iterator[Sampled
             try:
                 q.put(item, timeout=0.1)
                 return
-            except Exception:
+            except Full:
                 continue
 
     def work() -> None:
+        last = end
         try:
             for item in it:
                 put(item)
                 if stop.is_set():
                     return
+        except Exception as e:  # handed to the consumer, which re-raises it
+            last = _Failed(e)
         finally:
-            put(end)
+            put(last)
 
     threading.Thread(target=work, daemon=True).start()
     try:
@@ -127,6 +139,8 @@ def _prefetched(it: Iterator[SampledFrame], depth: int = 16) -> Iterator[Sampled
             item = q.get()
             if item is end:
                 return
+            if isinstance(item, _Failed):
+                raise item.error
             yield item
     finally:
         stop.set()

@@ -1,4 +1,4 @@
-"""Tensor ops of the ORB match path; kernels live in the ``cuda_*`` modules."""
+"""Tensor ops of both engines' match paths; kernels live in the ``cuda_*`` modules."""
 
 from __future__ import annotations
 

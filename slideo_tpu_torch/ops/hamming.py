@@ -8,6 +8,11 @@ per (query, slide): kernel K5 (csrc/table.cu) on CUDA, the chunked matmul of
 (``screen_slides_batched``, kernel K5 mode (b), csrc/screen.cu), and the
 exact table then covers each frame's candidate slides only. Everything here
 is bit-equal to the JAX package.
+
+The SIFT engine's float counterparts (``hamming.py:392-456``, ``:641-700``)
+are plain products, as the JAX package leaves them to XLA:
+``match_table_float`` (the f32 best and per-slide second-best table of unit
+descriptors) and ``screen_slides_float`` (its bf16 stage-1 vote).
 """
 
 from __future__ import annotations
@@ -27,9 +32,13 @@ __all__ = [
     "build_index",
     "match_table",
     "match_table_frame",
+    "match_table_float",
     "screen_queries",
     "screen_slides_batched",
+    "screen_slides_float",
 ]
+
+_NEG = -(2**30)   # the score of an invalid slot in the float table
 
 
 class DescriptorIndex(NamedTuple):
@@ -141,7 +150,8 @@ def screen_slides_batched(
     slot of every slide (full K); each frame's candidates are the stable top
     ``min(cfg.screen_slides, n_slides)`` of its votes. Returns [B, C] int32.
     The strided pre-vote (``screen_prevote``) and prefixes other than 128
-    bits are not ported and are refused.
+    bits are not ported and are refused. ``screen_k_per_slide`` is not read:
+    the JAX package's batched path ignores it too and votes over full K.
     """
     if cfg.screen_prevote:
         raise NotImplementedError(
@@ -173,9 +183,128 @@ def match_table_frame(
     stage-1 candidates (``screen_slides_batched`` on a batch of one) and the
     exact table over those columns. The port has one stage-1 rule, the
     batched path's, so a frame gets the same candidates alone as in a batch
-    (the JAX package's per-frame ``_screen_slides`` is not ported)."""
+    (the JAX package's per-frame ``_screen_slides`` is not ported). That
+    rule votes over full K, so a ``screen_k_per_slide`` below
+    ``k_per_slide``, which JAX's per-frame rule trims stage 1 to, is
+    refused."""
     if n_slides <= cfg.screen_above_slides:
         return match_table(query, index, n_slides, k_per_slide)
+    if cfg.screen_k_per_slide < k_per_slide:
+        raise NotImplementedError(
+            f"screen_k_per_slide={cfg.screen_k_per_slide} < {k_per_slide} keypoints per "
+            "slide: the JAX package's per-frame trim of stage 1 is not ported to "
+            "slideo_tpu_torch"
+        )
     qdesc = screen_queries(query, query_score, query_valid, cfg)
     cand = screen_slides_batched(qdesc[None], index, n_slides, k_per_slide, cfg)[0]
     return match_table(query, index, n_slides, k_per_slide, slide_ids=cand)
+
+
+_TABLE_CHUNK = 8    # match_table_float's slides per product (JAX hamming.py:398)
+_SCREEN_CHUNK = 16  # screen_slides_float's slides per product (JAX hamming.py:649)
+
+
+def _slide_chunks(
+    desc: torch.Tensor, valid: torch.Tensor, n_slides: int, k_per_slide: int,
+    slide_ids: torch.Tensor | None, chunk_slides: int,
+):
+    """The rows of ``slide_ids`` (all slides when None) in chunks of
+    ``chunk_slides`` slides: ([chunk_slides * K, D], [chunk_slides, K])
+    pairs read in place; the last chunk is padded with invalid zero slides,
+    as the JAX scan pads, so every product has one shape."""
+    d_dim = desc.shape[-1]
+    desc3 = desc.reshape(n_slides, k_per_slide, d_dim)
+    valid3 = valid.reshape(n_slides, k_per_slide)
+    n_cols = n_slides if slide_ids is None else slide_ids.shape[0]
+    chunk_slides = max(1, min(chunk_slides, n_cols))
+    for c0 in range(0, n_cols, chunk_slides):
+        c1 = min(c0 + chunk_slides, n_cols)
+        if slide_ids is None:
+            d, v = desc3[c0:c1], valid3[c0:c1]
+        else:
+            cols = slide_ids[c0:c1].long()
+            d, v = desc3[cols], valid3[cols]
+        pad = chunk_slides - (c1 - c0)
+        if pad:
+            d = torch.cat([d, d.new_zeros((pad, k_per_slide, d_dim))])
+            v = torch.cat([v, v.new_zeros((pad, k_per_slide))])
+        yield d.reshape(-1, d_dim), v, c1 - c0
+
+
+def match_table_float(
+    query: torch.Tensor,
+    desc: torch.Tensor,
+    valid: torch.Tensor,
+    n_slides: int,
+    k_per_slide: int,
+    slide_ids: torch.Tensor | None = None,
+) -> MatchTable:
+    """Best-match table of float (SIFT) descriptors over all ``n_slides``
+    slides of desc [S*K, D] / valid [S*K], or over the slides ``slide_ids``
+    ([C] int32, read in place where the JAX package copies them out).
+
+    query [Q, D] f32 unit vectors. Per (query, slide): the best dot over the
+    slide's valid slots (invalid slots score ``_NEG``), its first argmax and
+    the second best with that slot masked, as
+    dist = sqrt(max(2 - 2 * dot, 0)); a slide with one valid slot gets its
+    dist2 from ``_NEG`` (no second neighbour: Lowe's ratio passes). An f32
+    ``torch.matmul`` per chunk of ``_TABLE_CHUNK`` slides, as the JAX scan
+    chunks: the whole [2048, 250 x 2048] product would take 4.2 GB.
+    """
+    q = query.shape[0]
+    best, arg, second = [], [], []
+    for d, v, n in _slide_chunks(desc, valid, n_slides, k_per_slide, slide_ids, _TABLE_CHUNK):
+        scores = torch.matmul(query, d.T).reshape(q, v.shape[0], k_per_slide)
+        scores = torch.where(v[None], scores, float(_NEG))
+        b, a = scores.max(dim=-1)                       # first argmax
+        k_iota = torch.arange(k_per_slide, device=query.device)
+        s2 = torch.where(k_iota == a[..., None], float(_NEG), scores).amax(dim=-1)
+        best.append(b[:, :n])
+        arg.append(a[:, :n])
+        second.append(s2[:, :n])
+    best, arg, second = (torch.cat(x, dim=1) for x in (best, arg, second))
+    svalid = valid.reshape(n_slides, k_per_slide).any(dim=1)
+    if slide_ids is None:
+        slide_ids = torch.arange(n_slides, dtype=torch.int32, device=query.device)
+    else:
+        svalid = svalid[slide_ids.long()]
+    return MatchTable(
+        dist=torch.sqrt(torch.clamp(2.0 - 2.0 * best, min=0.0)),
+        train=arg.to(torch.int32),
+        slide_ids=slide_ids,
+        valid=svalid[None, :].expand(q, slide_ids.shape[0]),
+        dist2=torch.sqrt(torch.clamp(2.0 - 2.0 * second, min=0.0)),
+    )
+
+
+def screen_slides_float(
+    query: torch.Tensor,
+    query_score: torch.Tensor,
+    desc: torch.Tensor,
+    valid: torch.Tensor,
+    n_slides: int,
+    k_per_slide: int,
+    cfg: MatchConfig,
+) -> torch.Tensor:
+    """Stage-1 candidate slides [min(cfg.screen_slides, n_slides)] int32 of
+    one frame's float (SIFT) descriptors (``hamming.py:641-700``).
+
+    The ``cfg.screen_queries`` strongest queries by ``query_score`` vote
+    for every slide whose best dot lies within 5% + 0.05 (unit-vector L2)
+    of the query's best slide. Queries and descriptors are rounded to bf16
+    and multiplied as f32, as the JAX package asks its bf16 product for an
+    f32 result (a bf16 ``torch.matmul`` would round the result to bf16).
+    """
+    _, top_q = top_k(query_score, min(cfg.screen_queries, query.shape[0]))
+    q_sub = query[top_q].to(torch.bfloat16).to(torch.float32)
+    qs = q_sub.shape[0]
+    best = []
+    for d, v, n in _slide_chunks(desc, valid, n_slides, k_per_slide, None, _SCREEN_CHUNK):
+        d = d.to(torch.bfloat16).to(torch.float32)
+        dots = torch.matmul(q_sub, d.T).reshape(qs, v.shape[0], k_per_slide)
+        best.append(torch.where(v[None], dots, -2.0).amax(dim=-1)[:, :n])
+    dist = torch.sqrt(torch.clamp(2.0 - 2.0 * torch.cat(best, dim=1), min=0.0))
+    bestd = dist.amin(dim=1, keepdim=True)
+    keep = dist <= bestd * 1.05 + 0.05
+    votes = keep.sum(dim=0).to(torch.float32)
+    return top_k(votes, min(cfg.screen_slides, n_slides))[1].to(torch.int32)

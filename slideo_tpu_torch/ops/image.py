@@ -2,8 +2,9 @@
 
 Port of ``slideo_tpu/ops/image.py``. Resampling stays two dense matrix
 products per image (``out = Wy @ img @ Wx^T``) with the same host-built
-weight matrices; PyTorch runs them as plain f32 matmuls (the engine turns
-TF32 off, so they are full f32 on the card too).
+weight matrices; PyTorch runs them as plain f32 matmuls, and the SIFT
+engine's Gaussian blur as two f32 convolutions (the engine turns TF32 off
+for both, so they are full f32 on the card too).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ __all__ = [
     "resize",
     "to_small_image",
     "compute_similarity",
+    "gaussian_blur",
 ]
 
 
@@ -102,3 +104,23 @@ def _gauss_kernel_1d(ksize: int, sigma: float) -> np.ndarray:
     xs = np.arange(ksize, dtype=np.float64) - (ksize - 1) / 2.0
     k = np.exp(-(xs**2) / (2.0 * sigma * sigma))
     return (k / k.sum()).astype(np.float32)
+
+
+@lru_cache(maxsize=16)
+def _gauss_kernels_on(ksize: int, sigma: float, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    k = torch.from_numpy(_gauss_kernel_1d(ksize, sigma)).to(device)
+    return k.reshape(1, 1, 1, ksize), k.reshape(1, 1, ksize, 1)
+
+
+def gaussian_blur(img: torch.Tensor, ksize: int = 7, sigma: float = 2.0) -> torch.Tensor:
+    """Separable Gaussian blur of [..., H, W] in f32 with reflect-101 edges
+    (OpenCV's default, ``image.py:142-156``): a row pass, then a column
+    pass, each a VALID convolution of the padded image."""
+    pad = ksize // 2
+    h, w = img.shape[-2], img.shape[-1]
+    x = img.to(torch.float32).reshape(-1, 1, h, w)
+    x = torch.nn.functional.pad(x, (pad, pad, pad, pad), mode="reflect")
+    kx, ky = _gauss_kernels_on(ksize, float(sigma), x.device)
+    x = torch.nn.functional.conv2d(x, kx)
+    x = torch.nn.functional.conv2d(x, ky)
+    return x.reshape(img.shape)

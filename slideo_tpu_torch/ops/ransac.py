@@ -95,14 +95,15 @@ def _inliers(
 
 
 def uniform_draws(
-    n_cand: int, cfg: MatchConfig, frame_seed: int, device: torch.device
+    n_cand: int, cfg: MatchConfig, frame_seed: int, device: torch.device, n_points: int = 2
 ) -> torch.Tensor:
-    """The engine's hypothesis draws u [C, H, 2] in [0, 1), from a generator
-    seeded by (ransac_seed, frame index): deterministic per frame."""
+    """The engine's hypothesis draws u [C, H, n_points] in [0, 1) (2 for a
+    similarity, 4 for a homography), from a generator seeded by
+    (ransac_seed, frame index): deterministic per frame."""
     gen = torch.Generator(device=device)
     gen.manual_seed((cfg.ransac_seed << 32) ^ (frame_seed & 0xFFFFFFFF))
     return torch.rand(
-        (n_cand, cfg.ransac_iters, 2), generator=gen, device=device,
+        (n_cand, cfg.ransac_iters, n_points), generator=gen, device=device,
         dtype=torch.float32,
     )
 

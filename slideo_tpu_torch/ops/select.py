@@ -5,7 +5,9 @@ Port of ``slideo_tpu/ops/select.py:29-145`` (reference lib.rs:268-295): the
 nothing, the per-query fan-out cap of knn_k slides, ranking slides by
 kept-match count, and compacting each of the top candidates' matches by
 ascending distance. Every top-k is ``ops.top_k`` (ties: lowest index
-first), as ``jax.lax.top_k`` orders them.
+first), as ``jax.lax.top_k`` orders them. The SIFT engine's rule,
+``select_candidates_lowe`` (``select.py:147-195``), keeps a (query, slide)
+match by Lowe's ratio within that slide and compacts the same way.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ __all__ = [
     "rank_candidates_table",
     "compact_from_rank",
     "select_candidates_table",
+    "select_candidates_lowe",
 ]
 
 _BIG = 1e6
@@ -89,4 +92,22 @@ def select_candidates_table(
 ) -> CandidateMatches:
     """Candidate selection from a best-match table (lib.rs:268-295)."""
     keep, top_counts, cand_cols = rank_candidates_table(table, query_valid, cfg)
+    return compact_from_rank(table, keep, top_counts, cand_cols, cfg)
+
+
+def select_candidates_lowe(
+    table: MatchTable, query_valid: torch.Tensor, cfg: MatchConfig, lowe_ratio: float = 0.75
+) -> CandidateMatches:
+    """Candidate selection by Lowe's ratio PER SLIDE: a (query, slide)
+    pair's best match is kept iff dist < lowe_ratio * dist2 within that
+    slide (``table.dist2`` from ``hamming.match_table_float``), so a kept
+    match does not depend on which other slides the table holds; slides
+    are ranked by kept-match count and each candidate's matches compacted
+    by ascending distance, as in ``select_candidates_table``."""
+    if table.dist2 is None:
+        raise ValueError("select_candidates_lowe needs a table from match_table_float (dist2)")
+    q, s = table.dist.shape
+    keep = table.valid & query_valid[:, None] & (table.dist < lowe_ratio * table.dist2)
+    counts = keep.sum(dim=0).to(torch.float32)
+    top_counts, cand_cols = top_k(counts, min(cfg.top_slides, s))
     return compact_from_rank(table, keep, top_counts, cand_cols, cfg)

@@ -21,7 +21,10 @@ travel, over gloo.
 Entries may repeat: ``[cpu] * 8`` is the tests' counterpart of the JAX
 package's 8 virtual CPU devices, ``[cuda:0] * 2`` drives the path on one
 card. ``knn_index_sharded`` is not ported (nothing on a production path
-uses it), nor ``match_frames_sift_sharded`` (the SIFT engine is not ported).
+uses it). Frame DP serves both engines: ``match_frames_sharded`` takes the
+engine's match function (``match_frames_sift`` for the SIFT engine, the
+counterpart of ``match_frames_sift_sharded``, ``mesh.py:175-198``) and
+``replicate_index`` moves either index.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ import torch.distributed as dist
 from ..config import SlideoConfig
 from ..models import orb_matcher
 from ..models.orb_matcher import FrameMatch, SlideIndex
+from ..models.sift_matcher import SiftSlideIndex
 from ..ops import hamming, image
 from ..ops.features import extract_features
 
@@ -114,7 +118,9 @@ def make_mesh(devices=None, axis: str = "frames") -> Mesh:
     return Mesh(list(devices), (axis,))
 
 
-def _index_to(index: SlideIndex, device: torch.device) -> SlideIndex:
+def _index_to(index: SlideIndex | SiftSlideIndex, device: torch.device):
+    if isinstance(index, SiftSlideIndex):
+        return SiftSlideIndex(*(t.to(device) for t in index))
     di = index.desc_index
     return SlideIndex(
         desc_index=hamming.DescriptorIndex(*(None if t is None else t.to(device) for t in di)),
@@ -123,10 +129,11 @@ def _index_to(index: SlideIndex, device: torch.device) -> SlideIndex:
     )
 
 
-def replicate_index(mesh: Mesh, index: SlideIndex) -> list[SlideIndex]:
-    """One replica of the deck index per mesh entry, in ``mesh.devices.flat``
-    order; entries on the same device share one copy."""
-    placed: dict[torch.device, SlideIndex] = {}
+def replicate_index(mesh: Mesh, index: SlideIndex | SiftSlideIndex) -> list:
+    """One replica of the deck index (ORB or SIFT) per mesh entry, in
+    ``mesh.devices.flat`` order; entries on the same device share one
+    copy."""
+    placed: dict[torch.device, SlideIndex | SiftSlideIndex] = {}
     for d in mesh.devices.flat:
         if d not in placed:
             placed[d] = _index_to(index, d)
@@ -179,16 +186,19 @@ def match_frames_sharded(
     mesh: Mesh,
     frames: torch.Tensor,
     frame_seeds: Sequence[int],
-    replicas: Sequence[SlideIndex],
+    replicas: Sequence[SlideIndex | SiftSlideIndex],
     slide_hw: tuple[int, int],
     cfg: SlideoConfig,
+    match_frames: Callable[..., FrameMatch] = orb_matcher.match_frames,
 ) -> FrameMatch:
-    """Frame-data-parallel matching over a 1-D mesh (``mesh.py:144-172``).
+    """Frame-data-parallel matching over a 1-D mesh (``mesh.py:144-198``).
 
     frames [B, H, W] with B divisible by the mesh size; replicas from
     ``replicate_index``. Mesh entry i matches frames [i*B/n, (i+1)*B/n) with
-    ``orb_matcher.match_frames`` against its replica on its own thread; the
-    fields come back [B], in frame order, on the first mesh device."""
+    ``match_frames`` (the ORB engine's by default, or
+    ``sift_matcher.match_frames_sift``) against its replica on its own
+    thread; the fields come back [B], in frame order, on the first mesh
+    device."""
     devices = list(mesh.devices.flat)
     b, n = frames.shape[0], len(devices)
     if b % n:
@@ -198,7 +208,7 @@ def match_frames_sharded(
 
     def job(i: int) -> Callable[[], FrameMatch]:
         rows = slice(i * per, (i + 1) * per)
-        return lambda: orb_matcher.match_frames(
+        return lambda: match_frames(
             frames[rows].to(devices[i]), seeds[rows], replicas[i], slide_hw, cfg
         )
 
