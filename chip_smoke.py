@@ -33,7 +33,11 @@ Phases:
    500-slide 1080x1920 deck of near-duplicate families (100 pages, each
    revealed line by line into 5 slides) and 80 sampled frames (runs of
    adjacent family members, noise, blank). It holds K5 mode (b) bit-equal
-   to its plain version on 64 frames' stacked query prefixes and K5 mode
+   to its plain version on 64 frames' stacked query prefixes, on one
+   frame's and on a ragged last batch of 37 frames' (R = 9,472), and on
+   the 1,000 query prefixes of the adversarial index at K = 2048 and
+   K = 1000 (``screen_cases``), times it at 64 frames and at one frame
+   (there beside ``torch._int_mm`` of the product alone), and K5 mode
    (a) bit-equal over a frame's 16 listed slides in both query buckets and
    over all 500 slides at Q=2048 (each timed), checks the
    timeline through the port's ``Db``, checks that the screened run
@@ -80,6 +84,10 @@ of the process.
 and 2 and then only times versions of ``csrc/fast.cu`` (the checked-in one
 or edited copies keeping its two launchers) against each other in turns,
 each held bit-equal to the plain version first.
+``python3 chip_smoke.py --compare-screen SOURCE [SOURCE ...]`` does the
+same for versions of ``csrc/screen.cu`` (each exporting ``slideo_screen``)
+on a random index of phase 5's shape: ptxas's resources and SASS counts,
+bit-equality on every K5 (b) case, device ms at 64 frames and one frame.
 
 Every path (phases 4, 5 screened, 6a, 6b, 7's profile, 8a, 8b screened
 and exact) runs with the launch counts set to 0 just before it and read
@@ -685,6 +693,155 @@ def time_table(torch, label: str, query, di, n_slides: int, k: int, slide_ids, s
     return ms, dev
 
 
+def screen_bound(r: int, n_slides: int, k: int) -> dict:
+    """K5 (b) reads each slot's 128-byte prefix and valid byte and the
+    queries once and writes [R, S] int32; 2 * 128 int8 operations a
+    (query, slot) pair."""
+    n_idx = n_slides * k
+    return bound(n_idx * 129 + r * 128 + r * n_slides * 4, 2 * r * n_idx * 128, "int8")
+
+
+def screen_cases(torch, prefixes, per_frame: int, di, n_slides: int, k: int) -> list:
+    """K5 (b)'s shapes: (label, query, index, S, K, the plain version's
+    result). ``prefixes`` are a batch of frames' stacked ``per_frame``
+    query prefixes against the index ``di``; then one frame, a ragged last
+    batch of 37 frames, and the 1,000 query prefixes of
+    ``adversarial_table`` (phase 3's seed; every 7th row zero, a slide with
+    no valid slot, one valid only in its second half) at K = 2048 and at
+    K = 1000, which is not a multiple of the 64-slot tile."""
+    from slideo_tpu_torch.ops import cuda_screen, hamming
+
+    dev = prefixes.device
+    cases = [(f"{prefixes.shape[0] // per_frame} frames", prefixes, di, n_slides, k),
+             ("one frame", prefixes[:per_frame], di, n_slides, k),
+             ("37 frames", prefixes[:37 * per_frame], di, n_slides, k)]
+    for k_adv in (2048, 1000):
+        query, desc, valid, _ = adversarial_table(3, k=k_adv)
+        adv = hamming.build_index(torch.from_numpy(desc).to(dev), torch.from_numpy(valid).to(dev))
+        q = torch.from_numpy(query[:, :cuda_screen.SCREEN_BITS].copy()).to(dev)
+        cases.append((f"adversarial K={k_adv}", q, adv, desc.shape[0], k_adv))
+    return [(*c, cuda_screen.screen_scores_plain(c[1], c[2].desc, c[2].valid, c[3], c[4]))
+            for c in cases]
+
+
+def check_screen(torch, cases: list, tag: str) -> dict:
+    """Hold K5 (b) bit-equal to its plain version on every case of
+    ``screen_cases``; returns each case's max abs error (0)."""
+    from slideo_tpu_torch.ops import cuda_screen
+
+    errs = {}
+    for label, query, di, n_slides, k, want in cases:
+        got = cuda_screen.screen_scores(query, di.desc, di.valid, n_slides, k)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        errs[label] = float((got - want).abs().max())
+        print(f"[K5b] {tag} {label}: query {tuple(query.shape)} x {n_slides} slides x {k} slots: "
+              f"bit-equal {same}")
+        check(same, f"K5 (b) screening kernel ({tag}) is not bit-equal to its plain version "
+                    f"({label})")
+    return errs
+
+
+def time_screen(torch, label: str, query, di, n_slides: int, k: int, smi: str,
+                library: bool = False, plain: bool = True) -> tuple[dict, dict]:
+    """Call ms of K5 (b) and of its plain version, device ms of K5 (b);
+    with ``library``, also of ``torch._int_mm`` of the product alone ([R,
+    128] @ [128, S*K], on a contiguous copy of the prefixes made here: no
+    mask, no max), which the port never calls."""
+    from slideo_tpu_torch.ops import cuda_screen
+
+    fns = {"kernel": lambda: cuda_screen.screen_scores(query, di.desc, di.valid, n_slides, k)}
+    if plain:
+        fns["plain"] = lambda: cuda_screen.screen_scores_plain(query, di.desc, di.valid, n_slides, k)
+    if library:
+        pre_t = di.desc[:, :cuda_screen.SCREEN_BITS].contiguous().T
+        fns["library"] = lambda: torch._int_mm(query, pre_t)
+    ms = cuda_ms(fns, reps=5)
+    dev = device_ms({n: f for n, f in fns.items() if n != "plain"}, ms, reps=5)
+    b = screen_bound(query.shape[0], n_slides, k)
+    lib = (f"; torch._int_mm call {ms['library']:.4f} ms, device {dev['library']:.4f} ms"
+           if library else "")
+    pl = f"; plain {ms['plain']:.4f} ms" if plain else ""
+    print(f"[time] screen_scores {label}: kernel call {ms['kernel']:.4f} ms, device "
+          f"{dev['kernel']:.4f} ms{pl}{lib}; bound {b['bound_ms']:.4f} ms ({b['bound_by']}) ({smi})")
+    return ms, dev
+
+
+def compare_library(src: str, index: int, symbols: tuple):
+    """``src`` built alone into a library of its own with ``-Xptxas -v``
+    (headers from csrc/), the C signatures of ``symbols`` bound; returns
+    the library, ptxas's resource lines and the counts of the SASS opcodes
+    (the name before the first dot) from ``cuobjdump -sass``."""
+    import collections
+    import ctypes
+    import re
+
+    from slideo_tpu_torch import _kernels
+
+    so = _kernels._BUILD_DIR / f"compare_{index}_{Path(src).stem}.so"
+    so.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([_kernels._nvcc(), *_kernels._FLAGS, "-I", str(_kernels._SRC_DIR),
+                           "-Xptxas", "-v", "-shared", "-o", str(so), src],
+                          capture_output=True, text=True)
+    check(proc.returncode == 0, f"nvcc failed on {src}:\n{proc.stderr}")
+    resources = [line.strip() for line in proc.stderr.splitlines()
+                 if "registers" in line or "spill" in line]
+    sass = subprocess.run([str(Path(_kernels._nvcc()).parent / "cuobjdump"), "-sass", str(so)],
+                          capture_output=True, text=True, check=True).stdout
+    ops = collections.Counter(re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)", sass))
+    lib = ctypes.CDLL(str(so))
+    for name in symbols:
+        getattr(lib, name).argtypes = _kernels._SIGNATURES[name]
+        getattr(lib, name).restype = ctypes.c_int
+    return lib, resources, ops
+
+
+def phase_compare_screen(torch, sources: list[str], seed: int, smi: str) -> None:
+    """Versions of csrc/screen.cu side by side: each source (exporting
+    ``slideo_screen`` with its C signature) is built into a library of its
+    own; ptxas's registers, spills and shared memory and the SASS counts of
+    IMMA, IDP (dp4a), LDSM, LDGSTS and LDS are printed. On a random +-1
+    index of the phase-5 shape (500 slides x 2048 slots, 10% of slots and
+    slide 7 invalid) and 64 frames' worth of random prefixes (every 7th row
+    zero), each version is held bit-equal on every case of
+    ``screen_cases`` and timed at 64 frames and one frame, in turns,
+    forwards then backwards."""
+    from slideo_tpu_torch import _kernels
+    from slideo_tpu_torch.ops import hamming
+
+    libs = {}
+    for src in sources:
+        lib, resources, ops = compare_library(src, len(libs), ("slideo_screen",))
+        print(f"[compare] {src}: {resources}; {sum(ops.values())} SASS instructions, " + ", ".join(
+            f"{op} {ops[op]}" for op in ("IMMA", "IDP", "LDSM", "LDGSTS", "LDS")))
+        libs[src] = lib
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pm1 = lambda *shape: (torch.randint(0, 2, shape, generator=gen, device=dev,  # noqa: E731
+                                        dtype=torch.int8) * 2 - 1).to(torch.int8)
+    n_slides, k = 500, 2048
+    valid = torch.rand(n_slides, k, generator=gen, device=dev) > 0.1
+    valid[7] = False
+    di = hamming.build_index(pm1(n_slides, k, 256), valid)
+    prefixes = pm1(64 * 256, 128)
+    prefixes[::7] = 0
+    cases = screen_cases(torch, prefixes, 256, di, n_slides, k)
+    times = {src: {"64 frames": [], "one frame": []} for src in sources}
+    for turn, names in enumerate((sources, sources[::-1])):
+        for src in names:
+            _kernels._lib = libs[src]
+            print(f"[compare] {src}, turn {turn}")
+            check_screen(torch, cases, src)
+            for label, query in (("64 frames", prefixes), ("one frame", prefixes[:256])):
+                _, dev_ms = time_screen(torch, f"{src} {label}", query, di, n_slides, k, smi,
+                                        plain=False)
+                times[src][label].append(dev_ms["kernel"])
+    for src in sources:
+        print(f"[compare] {src}: device ms " + "; ".join(
+            f"{label} {min(t):.4f}-{max(t):.4f}" for label, t in times[src].items()) + f" ({smi})")
+    _kernels._lib = None
+
+
 def phase_profiler_check(torch, smi: str) -> None:
     """K5 at Q=768 x 64 slides x 2048 slots (random +-1 rows): the graph
     replay's device ms against ``torch.profiler``'s kernel durations."""
@@ -712,30 +869,14 @@ def phase_compare_fast(torch, sources: list[str], seed: int, smi: str) -> None:
     bit-equal to the plain version on the scalar-path shapes, then
     ``fast_case`` / ``fast_batch_case`` check and time K1 on a frame's atlas
     and a corner-dense atlas, and K2 on 8 slide and 8 corner-dense atlases."""
-    import collections
-    import ctypes
-    import re
-
     from slideo_tpu_torch import DEFAULT_CONFIG, _kernels
     from slideo_tpu_torch.ops import features
 
-    nvcc = _kernels._nvcc()
     libs = {}
     for src in sources:
-        so = _kernels._BUILD_DIR / f"compare_{len(libs)}_{Path(src).stem}.so"
-        proc = subprocess.run([nvcc, *_kernels._FLAGS, "-Xptxas", "-v", "-shared", "-o", str(so), src],
-                              capture_output=True, text=True)
-        check(proc.returncode == 0, f"nvcc failed on {src}:\n{proc.stderr}")
-        sass = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass", str(so)],
-                              capture_output=True, text=True, check=True).stdout
-        ops = collections.Counter(re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)", sass))
-        regs = [line.strip() for line in proc.stderr.splitlines() if "registers" in line]
-        print(f"[compare] {src}: {regs}; {sum(ops.values())} SASS instructions, " + ", ".join(
+        lib, resources, ops = compare_library(src, len(libs), ("slideo_fast_nms", "slideo_fast_nms_batch"))
+        print(f"[compare] {src}: {resources}; {sum(ops.values())} SASS instructions, " + ", ".join(
             f"{op} {ops[op]}" for op in ("HMNMX2", "VHMNMX", "FMNMX", "F2FP", "LDS", "LDG", "STG")))
-        lib = ctypes.CDLL(str(so))
-        for name in ("slideo_fast_nms", "slideo_fast_nms_batch"):
-            getattr(lib, name).argtypes = _kernels._SIGNATURES[name]
-            getattr(lib, name).restype = ctypes.c_int
         libs[src] = lib
     thr = DEFAULT_CONFIG.orb.fast_threshold
     rng = np.random.RandomState(seed)
@@ -978,24 +1119,20 @@ def phase_screened(torch, seed: int, smi: str) -> tuple[dict, dict, dict]:
         hamming.screen_queries(ft.desc, ft.score, ft.valid, cfg.match) for ft, _ in front
     ])
     prefixes = qdesc[..., :cuda_screen.SCREEN_BITS].reshape(-1, cuda_screen.SCREEN_BITS).contiguous()
-    best = cuda_screen.screen_scores(prefixes, di.desc, di.valid, n_slides, kps_per)
-    pbest = cuda_screen.screen_scores_plain(prefixes, di.desc, di.valid, n_slides, kps_per)
-    torch.cuda.synchronize()
-    same = torch.equal(best, pbest)
-    err = float((best - pbest).abs().max())
-    print(f"[K5b] prefixes {tuple(prefixes.shape)} x index {n_slides}x{kps_per}: bit-equal {same}")
-    check(same, "K5 (b) screening kernel is not bit-equal to its plain version")
-    ms = cuda_ms({
-        "kernel": lambda: cuda_screen.screen_scores(prefixes, di.desc, di.valid, n_slides, kps_per),
-        "plain": lambda: cuda_screen.screen_scores_plain(prefixes, di.desc, di.valid, n_slides, kps_per),
-    }, reps=5)
-    dev_ms = device_ms({"kernel": lambda: cuda_screen.screen_scores(
-        prefixes, di.desc, di.valid, n_slides, kps_per)}, ms, reps=5)
-    r, n_idx = prefixes.shape[0], n_slides * kps_per
+    print(f"[K5b] prefixes {tuple(prefixes.shape)} x index {n_slides}x{kps_per}")
+    per_frame = cfg.match.screen_queries
+    errs = check_screen(torch, screen_cases(torch, prefixes, per_frame, di, n_slides, kps_per),
+                        "csrc/screen.cu")
+    ms, dev_ms = time_screen(torch, f"{prefixes.shape[0]} queries", prefixes, di, n_slides,
+                             kps_per, smi)
+    one, one_dev = time_screen(torch, "one frame", prefixes[:per_frame], di, n_slides, kps_per,
+                               smi, library=True)
     row = kernel_row(
-        "screen_scores", "screen.cu", "slideo_tpu/ops/pallas_table.py:143", err, ms, dev_ms,
-        bound(n_idx * (cuda_screen.SCREEN_BITS + 1) + r * cuda_screen.SCREEN_BITS + r * n_slides * 4,
-              2 * r * n_idx * cuda_screen.SCREEN_BITS, "int8"),
+        "screen_scores", "screen.cu", "slideo_tpu/ops/pallas_table.py:143", max(errs.values()),
+        ms, dev_ms, screen_bound(prefixes.shape[0], n_slides, kps_per),
+        one_frame=dict(max_abs_err=errs["one frame"], ms=one["kernel"], device_ms=one_dev["kernel"],
+                       plain_ms=one["plain"], **screen_bound(per_frame, n_slides, kps_per),
+                       library_ms=one["library"], library_device_ms=one_dev["library"]),
     )
     print_row(row, smi)
 
@@ -1297,6 +1434,9 @@ def main() -> None:
                     help="only cross-check K5's device ms with torch.profiler, then exit")
     ap.add_argument("--compare-fast", nargs="+", metavar="SOURCE",
                     help="only time these versions of csrc/fast.cu against each other, then exit")
+    ap.add_argument("--compare-screen", nargs="+", metavar="SOURCE",
+                    help="only check and time these versions of csrc/screen.cu against each "
+                         "other, then exit")
     args = ap.parse_args()
 
     import torch
@@ -1309,6 +1449,9 @@ def main() -> None:
         return
     if args.compare_fast:
         phase_compare_fast(torch, args.compare_fast, args.seed, smi)
+        return
+    if args.compare_screen:
+        phase_compare_screen(torch, args.compare_screen, args.seed, smi)
         return
     rng = np.random.RandomState(args.seed)
     t0 = time.perf_counter()

@@ -3,9 +3,10 @@
 The counterpart of ``slideo_tpu/native.py``: every ``csrc/*.cu`` file is
 compiled by its own ``nvcc``, all in parallel, and linked into ONE shared
 library with a plain C interface, loaded with ctypes. No PyTorch headers
-are included, so a build takes seconds. The library lands in ``_build/`` under a name carrying a hash of the
-sources and flags, so an edited source is rebuilt on first use and a stale
-library is never loaded. The build happens on the first call that needs a
+are included, so a build takes seconds. The library lands in ``_build/``
+under a name carrying a hash of the flags, the sources and the
+``csrc/*.cuh`` headers they include, so an edited source or header is
+rebuilt on first use and a stale library is never loaded. The build happens on the first call that needs a
 kernel, never at import: the CPU tests import every module.
 
 Each kernel's wrapper launches through ``launch``, which puts the operands'
@@ -102,17 +103,24 @@ def _run_all(cmds: list[list[str]]) -> None:
         raise RuntimeError("\n".join(failed))
 
 
-def _build() -> Path:
-    sources = sorted(_SRC_DIR.glob("*.cu"))
+def source_digest(src_dir: Path) -> str:
+    """Hash of the build flags and of every file a build reads: the
+    ``*.cu`` sources and the ``*.cuh`` headers they include."""
     digest = hashlib.sha256(" ".join(_FLAGS).encode())
-    for src in sources:
+    for src in sorted([*src_dir.glob("*.cu"), *src_dir.glob("*.cuh")]):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    target = _BUILD_DIR / f"libslideo_kernels_{digest.hexdigest()[:16]}.so"
+    return digest.hexdigest()[:16]
+
+
+def _build() -> Path:
+    sources = sorted(_SRC_DIR.glob("*.cu"))
+    digest = source_digest(_SRC_DIR)
+    target = _BUILD_DIR / f"libslideo_kernels_{digest}.so"
     if target.exists():
         return target
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+    tag = f"{digest}.{os.getpid()}"
     nvcc = _nvcc()
     # One nvcc per source, all at once, then one link.
     objs = [_BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]

@@ -1,5 +1,5 @@
 // K5 (mode b): stage-1 screening scores, the best 128-bit prefix dot product
-// of every (query, slide).
+// of every (query, slide), on the int8 tensor cores.
 //
 // Replaces slideo_tpu/ops/pallas_table.py:match_table_scores_pallas in its
 // int8 / transposed / max-only / skip_bias mode, as
@@ -11,132 +11,212 @@
 // the 128 prefix rows plus two -127 validity rows that meet two +1 query
 // columns, so an invalid slot scores exactly -254 inside the contraction.
 // This kernel reads the prefix in place instead: the first 128 bytes of each
-// 256-byte row of the port's row-major desc [S*K, 256], and valid [S*K]. It
-// computes the same numbers without a second index tensor (164 MB at 500
-// slides x 2048 slots) and writes -254 for an invalid slot directly.
-// Invalid query rows are all zero and score 0 against every valid slot, as
-// on the TPU: __dp4a on int8 keeps them exact, packed bits would not.
+// 256-byte row of the port's row-major desc [S*K, 256], and valid [S*K]. A
+// dot lies in [-128, 128], so a slide with a valid slot has its best among
+// the valid slots and one with none scores -254: the running max takes
+// valid slots only, and a max that took none is written as -254. Invalid
+// query rows are all zero and score 0 against every valid slot, as on the
+// TPU (int8 keeps them exact; packed bits would not).
 //
 // What bounds it on the card: 2*R*S*K*128 int8 operations (4.3 T at
-// R = 64 frames x 256 queries, S = 500, K = 2048) against ~S*K*128 bytes
-// of prefixes: compute-bound, at the int8 tensor-core rate.
-// Design (a first, right kernel; tensor cores are later work): one block per
-// (64-query tile, slide). The query tile stays in shared memory; the slide's
-// prefixes stream through shared memory 64 slots at a time. Each of the 256
-// threads owns a 4 x 4 block of (query, slot) dot products, reads both
-// operands as 16-byte vectors (rows padded to 36 words: conflict-free
-// 128-bit reads) and computes them with __dp4a, folds them into a running
-// max per query, and the 16 threads sharing a query reduce with warp
-// shuffles. Only the [R, S] result is written.
+// R = 64 frames x 256 queries, S = 500, K = 2048: 2.17 ms at 1,979 TOP/s)
+// against S*K*129 bytes of prefixes and validity read once from device
+// memory (132 MB, 0.04 ms): the int8 tensor-core rate. Two more limits
+// follow from the tiling. (1) L2 -> shared-memory traffic: each block
+// streams its slide's 2048 x 128 B prefixes, so a query tile of QT rows
+// reads R/QT * S * K * 128 B from L2 per call (8.4 GB at QT = 256, R =
+// 16,384; 33 GB at the earlier 64-query tile). (2) Shared-memory reads: a
+// B fragment read by ldmatrix feeds as many mma as the warp holds query
+// tiles of 16 rows.
+// Design: one block of 4 warps per (256-query tile, slide), query tiles
+// fastest in launch order, so the blocks of one slide run together and its
+// prefixes come from device memory once. One frame (R = 256) is one tile
+// and gives 500 blocks. Each warp holds 64 query rows, the most that fit,
+// as A fragments of mma.sync m16n8k32 s8 in registers (4 m-tiles x 4
+// k-steps x 4 = 64 registers, loaded once from global memory), so each
+// ldmatrix_x4 of slot data (8 slots x 2 k-steps) feeds 8 mma. The slide's
+// prefixes stream through a 4-stage ring of 64-slot tiles by cp.async.cg
+// 16-byte copies (8 a row at the 256-byte row stride; slots past the
+// slide's end zero-filled), into rows padded to 144 B so that the 8 rows
+// of an ldmatrix hit 8 distinct bank groups. Every warp multiplies its rows
+// with all 64 slots of a tile, 16 slots at a time as 8 independent
+// accumulator chains (2 slot groups x 4 m-tiles) of 4 k-steps. Validity
+// comes as two 32-bit ballots a tile (each lane loads 2 bytes one tile
+// ahead); slots past the slide's end count as invalid, so the zero-filled
+// rows of a ragged last tile never enter the max. Each thread folds its
+// accumulators into a running max of its 8 rows; a quad shuffle finishes
+// the max and only [R, S] is written. An int32 max is exact in any order.
+// ptxas gives 128 registers and no spill, so 4 blocks (16 warps) fit an
+// SM. A 512-query tile (8 warps) at R >= 8,192, which halves the L2 reads,
+// measured no faster: 5.07-5.10 device ms against this tile's 4.98-4.99 at
+// R = 16,384 (chip_smoke.py --compare-screen, NVIDIA H100 80GB HBM3,
+// 700.00 W), so the L2 traffic does not bind at this tile.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "int8_mma.cuh"
+
 namespace {
 
-constexpr int WORDS = 32;           // 128 int8 prefix = 32 packed int32 words
-constexpr int ROW_WORDS = 64;       // a desc row is 256 int8 = 64 words
-constexpr int QT = 64;              // queries per block
-constexpr int KT = 64;              // index slots per shared-memory chunk
-constexpr int LD = WORDS + 4;       // padded row, 16-byte aligned
-constexpr int INVALID = -254;       // two -127 validity rows x two +1 columns
+constexpr int ROW = 256;               // bytes of an index row
+constexpr int PREFIX = 128;            // bytes read of each index row and query row
+constexpr int LDS = PREFIX + 16;       // padded shared-memory row (bytes)
+constexpr int CHUNKS = PREFIX / 16;    // 16-byte copies per row
+constexpr int KSTEPS = PREFIX / 32;    // mma k-steps of 32 bytes
+constexpr int WARP_ROWS = 64;          // query rows a warp holds as A fragments
+constexpr int MT = WARP_ROWS / 16;     // m16 tiles of a warp
+constexpr int WARPS = 4;
+constexpr int THREADS = WARPS * 32;
+constexpr int QT = WARPS * WARP_ROWS;  // queries per block
+constexpr int NT = 64;                 // slots per ring stage: two per lane of a ballot
+constexpr int STAGES = 4;              // 4 x 64 x 144 B = 36,864 B of static shared memory
+constexpr int NG = 2;                  // 8-slot groups multiplied between two folds
+constexpr int INVALID = -254;          // two -127 validity rows x two +1 columns
 constexpr int kIntMin = -2147483647 - 1;
+static_assert(NT * CHUNKS % THREADS == 0, "a tile is whole copies of every thread");
 
-// rows x 8 int4 from a source whose rows are `stride` words apart.
-__device__ __forceinline__ void load_prefix(int (*dst)[LD], const int* __restrict__ src,
-                                            int stride, int rows_avail, int tid) {
-  for (int i = tid; i < 64 * (WORDS / 4); i += 256) {
-    const int r = i / (WORDS / 4), c4 = i % (WORDS / 4);
-    int4 v = make_int4(0, 0, 0, 0);
-    if (r < rows_avail) v = reinterpret_cast<const int4*>(src + (int64_t)r * stride)[c4];
-    *reinterpret_cast<int4*>(&dst[r][c4 * 4]) = v;
-  }
+// Bit 0: slot k0 + 2 * lane is valid; bit 1: slot k0 + 2 * lane + 1. Slots
+// past the slide's end are not.
+__device__ __forceinline__ int lane_valid(const uint8_t* __restrict__ vslide, int k0, int lane,
+                                          int k_per_slide) {
+  const int k = k0 + 2 * lane;
+  int v = 0;
+  if (k < k_per_slide && __ldg(vslide + k) != 0) v = 1;
+  if (k + 1 < k_per_slide && __ldg(vslide + k + 1) != 0) v |= 2;
+  return v;
 }
 
-__device__ __forceinline__ int dot4(int4 a, int4 b, int acc) {
-  acc = __dp4a(a.x, b.x, acc);
-  acc = __dp4a(a.y, b.y, acc);
-  acc = __dp4a(a.z, b.z, acc);
-  return __dp4a(a.w, b.w, acc);
-}
-
-__global__ void __launch_bounds__(256)
-screen_kernel(const int* __restrict__ query, int nq,
-              const int* __restrict__ desc, const uint8_t* __restrict__ valid,
-              int n_slides, int k_per_slide, int* __restrict__ best_out) {
-  __shared__ __align__(16) int qs[QT][LD];
-  __shared__ __align__(16) int ds[KT][LD];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * 16 + tx;
-  const int q0 = blockIdx.x * QT;
+__global__ void __launch_bounds__(THREADS)
+screen_kernel(const int8_t* __restrict__ query, int nq, const int8_t* __restrict__ desc,
+              const uint8_t* __restrict__ valid, int n_slides, int k_per_slide,
+              int* __restrict__ best_out) {
+  __shared__ __align__(128) uint8_t ring[STAGES][NT][LDS];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;   // mma fragment coordinates
   const int slide = blockIdx.y;
   const int64_t row0 = (int64_t)slide * k_per_slide;
+  const int8_t* dslide = desc + row0 * ROW;
+  const uint8_t* vslide = valid + row0;
+  const int n_tiles = (k_per_slide + NT - 1) / NT;
 
-  load_prefix(qs, query + (int64_t)q0 * WORDS, WORDS, nq - q0, tid);
-
-  int best[4];
+  auto load_tile = [&](int tile, int stage) {
+    const int k0 = tile * NT;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) best[i] = kIntMin;
-
-  for (int kc = 0; kc < k_per_slide; kc += KT) {
-    __syncthreads();  // previous chunk fully consumed (and qs loaded)
-    load_prefix(ds, desc + (row0 + kc) * ROW_WORDS, ROW_WORDS, k_per_slide - kc, tid);
-    __syncthreads();
-    int acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-#pragma unroll
-    for (int w = 0; w < WORDS; w += 4) {
-      int4 a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const int4*>(&qs[ty + 16 * i][w]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = *reinterpret_cast<const int4*>(&ds[tx + 16 * j][w]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = dot4(a[i], b[j], acc[i][j]);
+    for (int u = 0; u < NT * CHUNKS / THREADS; ++u) {
+      const int i = tid + u * THREADS;
+      const int r = i / CHUNKS, c = i % CHUNKS;
+      const bool in = k0 + r < k_per_slide;
+      cp_async16(smem_addr(&ring[stage][r][c * 16]),
+                 dslide + (int64_t)(in ? k0 + r : 0) * ROW + c * 16, in);
     }
+  };
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = kc + tx + 16 * j;
-      if (k >= k_per_slide) continue;
-      const bool ok = valid[row0 + k] != 0;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) best[i] = max(best[i], ok ? acc[i][j] : INVALID);
-    }
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_tiles) load_tile(s, s);
+    cp_async_commit();
   }
 
-  // Reduce over the 16 threads (tx) that share each query row.
+  // A fragments of rows qw + 16m + 8h + g: register h holds bytes 4t..4t+3
+  // of a k-step, register 2 + h bytes 16 + 4t..; rows past nq are zero.
+  const int qw = blockIdx.x * QT + warp * WARP_ROWS;
+  uint32_t a[MT][KSTEPS][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-      best[i] = max(best[i], __shfl_xor_sync(0xffffffffu, best[i], off));
-  }
-  if (tx == 0) {
+    for (int h = 0; h < 2; ++h) {
+      const int q = qw + 16 * m + 8 * h + g;
+      const uint32_t* src =
+          reinterpret_cast<const uint32_t*>(query + (int64_t)min(q, nq - 1) * PREFIX) + t;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int q = q0 + ty + 16 * i;
-      if (q < nq) best_out[(int64_t)q * n_slides + slide] = best[i];
+      for (int ks = 0; ks < KSTEPS; ++ks) {
+        a[m][ks][h] = q < nq ? __ldg(src + 8 * ks) : 0u;
+        a[m][ks][2 + h] = q < nq ? __ldg(src + 8 * ks + 4) : 0u;
+      }
+    }
+
+  // Running max over valid slots of rows qw + 16m + 8h + g.
+  int best[MT][2];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) best[m][0] = best[m][1] = kIntMin;
+
+  int vnext = lane_valid(vslide, 0, lane, k_per_slide);
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    cp_async_wait<STAGES - 2>();   // this tile has landed ...
+    __syncthreads();               // ... and every warp is done with tile - 1
+    const int next = tile + STAGES - 1;   // refills the stage of tile - 1
+    if (next < n_tiles) load_tile(next, next % STAGES);
+    cp_async_commit();
+    // Bit 4n of `even` (`odd`): validity of this lane's slot 8n + 2t (+ 1).
+    const uint32_t even = __ballot_sync(0xffffffffu, vnext & 1) >> t;
+    const uint32_t odd = __ballot_sync(0xffffffffu, vnext & 2) >> t;
+    if (tile + 1 < n_tiles) vnext = lane_valid(vslide, (tile + 1) * NT, lane, k_per_slide);
+
+    const uint8_t* st = &ring[tile % STAGES][0][0];
+#pragma unroll
+    for (int n0 = 0; n0 < NT / 8; n0 += NG) {
+      int c[NG][MT][4];
+#pragma unroll
+      for (int ng = 0; ng < NG; ++ng)
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) c[ng][m][i] = 0;
+#pragma unroll
+      for (int j = 0; j < KSTEPS / 2; ++j)
+#pragma unroll
+        for (int ng = 0; ng < NG; ++ng) {
+          // Lane i: slot 8(n0 + ng) + (i & 7), 16-byte chunk 4j + (i >> 3):
+          // b[0], b[1] are k-step 2j's B fragment, b[2], b[3] k-step 2j+1's.
+          uint32_t b[4];
+          ldmatrix_x4(smem_addr(st + (8 * (n0 + ng) + (lane & 7)) * LDS + (4 * j + (lane >> 3)) * 16),
+                      b);
+#pragma unroll
+          for (int m = 0; m < MT; ++m) mma_s8(c[ng][m], a[m][2 * j], b[0], b[1]);
+#pragma unroll
+          for (int m = 0; m < MT; ++m) mma_s8(c[ng][m], a[m][2 * j + 1], b[2], b[3]);
+        }
+      // c[ng][m][2h + j]: row 16m + 8h + g, slot 8(n0 + ng) + 2t + j.
+#pragma unroll
+      for (int ng = 0; ng < NG; ++ng) {
+        const bool ok0 = (even >> (4 * (n0 + ng))) & 1u;
+        const bool ok1 = (odd >> (4 * (n0 + ng))) & 1u;
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            if (ok0) best[m][h] = max(best[m][h], c[ng][m][2 * h]);
+            if (ok1) best[m][h] = max(best[m][h], c[ng][m][2 * h + 1]);
+          }
+      }
     }
   }
+  cp_async_wait<0>();
+
+  // The 4 lanes of a quad hold the same rows.
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      int v = best[m][h];
+      v = max(v, __shfl_xor_sync(0xffffffffu, v, 1));
+      v = max(v, __shfl_xor_sync(0xffffffffu, v, 2));
+      const int q = qw + 16 * m + 8 * h + g;
+      if (t == 0 && q < nq) best_out[(int64_t)q * n_slides + slide] = v == kIntMin ? INVALID : v;
+    }
 }
 
 }  // namespace
 
-// query [nq, 128] int8; desc [n_slides * k_per_slide, 256] int8;
-// valid [n_slides * k_per_slide] uint8; best [nq, n_slides] int32.
+// query [nq, 128] int8; desc [n_slides * k_per_slide, 256] int8, both
+// 16-byte aligned; valid [n_slides * k_per_slide] uint8; best [nq, n_slides]
+// int32.
 extern "C" int slideo_screen(const void* query, int nq, const void* desc,
                              const void* valid, int n_slides, int k_per_slide,
                              void* best, void* stream) {
-  dim3 block(16, 16);
   dim3 grid((nq + QT - 1) / QT, n_slides);
-  screen_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(query), nq, static_cast<const int*>(desc),
-      static_cast<const uint8_t*>(valid), n_slides, k_per_slide,
-      static_cast<int*>(best));
+  screen_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(query), nq, static_cast<const int8_t*>(desc),
+      static_cast<const uint8_t*>(valid), n_slides, k_per_slide, static_cast<int*>(best));
   return static_cast<int>(cudaGetLastError());
 }

@@ -47,6 +47,8 @@
 
 #include <atomic>
 
+#include "int8_mma.cuh"
+
 namespace {
 
 constexpr int D = 256;                 // int8 elements (bytes) per descriptor row
@@ -65,40 +67,6 @@ constexpr int BIAS = 512;              // added to every dot: keys of valid slot
 constexpr int SLOT_MASK = 0xFFFF;      // slots (k_per_slide + NT - 1 of them) fit 16 bits
 constexpr int MAX_K_PER_SLIDE = SLOT_MASK + 1 - (NT - 1);
 constexpr int kMaxDevices = 64;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared copy; with full == false no byte is read and the
-// 16 bytes are zero-filled.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool full) {
-  const int n = full ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// c += A (16 x 32, row) * B (32 x 8, col), int8 in, int32 accumulate.
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __global__ void __launch_bounds__(THREADS)
 match_table_kernel(const int8_t* __restrict__ query, int nq, const int8_t* __restrict__ desc,

@@ -65,6 +65,8 @@ def screen_scores(
             f"screen: query {tuple(query.shape)}, desc {tuple(desc.shape)}, valid "
             f"{tuple(valid.shape)} do not fit {n_slides} x {k_per_slide} x {_D_BITS}"
         )
+    if query.data_ptr() % 16 or desc.data_ptr() % 16:
+        raise ValueError("screen: query and desc must be 16-byte aligned (cp.async)")
     best = torch.empty((r, n_slides), dtype=torch.int32, device=query.device)
     if r == 0 or n_slides == 0:
         return best

@@ -5,7 +5,11 @@ CPU. The JAX package builds its screening tensor only on a TPU, so each JAX
 index here gets it attached by hand, as ``test_screened_batch.py`` does, and
 the Pallas screening kernel runs with ``interpret=True``.
 
-(i)   K5 mode (b)'s plain version == the Pallas kernel, bit for bit.
+(i)   K5 mode (b)'s plain version == the Pallas kernel, bit for bit, also
+      over several of ``csrc/screen.cu``'s query tiles with a ragged last
+      one and at a K that is not a multiple of its slot tile; the kernel
+      library's name hashes the ``csrc`` headers too, and the package ships
+      every file a build reads.
 (ii)  ``screen_slides_batched`` gives JAX's candidate ids: random, tie-heavy
       and exact vote-boundary decks.
 (iii) ``match_frames`` and ``MatchingEngine`` on a 100-slide deck assign
@@ -18,6 +22,8 @@ the Pallas screening kernel runs with ``interpret=True``.
 from __future__ import annotations
 
 import dataclasses
+import re
+import tomllib
 from pathlib import Path
 
 import jax
@@ -31,6 +37,7 @@ from slideo_tpu.models import orb_matcher as jom
 from slideo_tpu.ops import features as jfeat
 from slideo_tpu.ops import hamming as jham
 from slideo_tpu.ops.pallas_table import match_table_scores_pallas
+from slideo_tpu_torch import _kernels
 from slideo_tpu_torch.app.pipeline import MatchingEngine, PdfPage
 from slideo_tpu_torch.models import orb_matcher as tom
 from slideo_tpu_torch.ops import cuda_screen
@@ -58,27 +65,38 @@ def _port_index(desc: np.ndarray, valid: np.ndarray):
     return tham.build_index(torch.from_numpy(desc), torch.from_numpy(valid))
 
 
-@pytest.mark.parametrize("k", [256, 384])
-def test_screen_scores_plain_equals_pallas(k):
+@pytest.mark.parametrize("k, r", [(256, 70), (384, 70), (256, 600), (1000, 70)])
+def test_screen_scores_plain_equals_pallas(k, r):
+    """The plain version bit-equal to the interpret-mode Pallas kernel.
+    (256, 600): R spans three of ``csrc/screen.cu``'s 256-query tiles, the
+    last one ragged (88 rows). (1000, 70): K is not a multiple of its
+    64-slot tile. The Pallas kernel takes only K a multiple of 128, so it
+    runs at the nearest K it accepts, 1024, with slots 1000-1023 of every
+    slide invalid (the same function: they score -254, below any valid
+    slot and equal to a slide with none), against the plain version on the
+    index at K = 1000."""
     rng = np.random.RandomState(k)
-    s, r = 5, 70
+    s = 5
     desc = _pm1(rng, s, k, 256)
     valid = rng.rand(s, k) > 0.25
     valid[2] = False                        # a slide with no valid slot: -254
     query = _pm1(rng, r, 256)
-    query[[3, 40, 69]] = 0                  # invalid query rows are all zero
+    query[[3, 40, r - 1]] = 0               # invalid query rows are all zero
     desc[4, 7] = query[0]                   # an exact prefix hit (+128)
     valid[4, 7] = True
     desc[1, 9, :128] = -query[1, :128]      # the worst valid prefix (-128)
     valid[1] = False
     valid[1, 9] = True
-    ji = _jax_index(desc, valid)
+    kp = -(-k // 128) * 128                 # the K the Pallas kernel accepts
+    desc_p = np.concatenate([desc, _pm1(rng, s, kp - k, 256)], axis=1)
+    valid_p = np.concatenate([valid, np.zeros((s, kp - k), bool)], axis=1)
+    ji = _jax_index(desc_p, valid_p)
     qp = jnp.concatenate(
         [jnp.asarray(query[:, :128]), jnp.ones((r, 2), jnp.int8), jnp.zeros((r, 30), jnp.int8)],
         axis=1,
     )
     want, _ = match_table_scores_pallas(
-        qp, ji.screen_desc, jnp.zeros((s * k,), jnp.float32), s, k, dtype=jnp.int8,
+        qp, ji.screen_desc, jnp.zeros((s * kp,), jnp.float32), s, kp, dtype=jnp.int8,
         with_arg=False, transposed=True, skip_bias=True, interpret=True,
     )
     want = np.asarray(want)
@@ -86,10 +104,51 @@ def test_screen_scores_plain_equals_pallas(k):
     got = cuda_screen.screen_scores(
         torch.from_numpy(query[:, :128]).contiguous(), ti.desc, ti.valid, s, k
     ).numpy()
+    assert got.shape == (r, s)
     assert got.dtype == np.int32 and np.array_equal(got, want.astype(np.int32))
     assert np.array_equal(want, got.astype(np.float32))
     assert (got[:, 2] == -254).all() and got[0, 4] == 128 and got[1, 1] == -128
     assert (got[3, [0, 1, 3, 4]] == 0).all()   # zero row vs valid slots
+
+
+def test_source_digest_covers_headers(tmp_path):
+    """The kernel library's name hashes every file a build reads: editing a
+    ``csrc/*.cuh`` header alone must change it, as editing a source does, so
+    a stale library is never loaded."""
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("#pragma once\n")
+    (tmp_path / "notes.txt").write_text("not read by a build\n")
+    first = _kernels.source_digest(tmp_path)
+    assert _kernels.source_digest(tmp_path) == first
+    (tmp_path / "notes.txt").write_text("edited\n")
+    assert _kernels.source_digest(tmp_path) == first
+    (tmp_path / "h.cuh").write_text("#pragma once\n// edited\n")
+    second = _kernels.source_digest(tmp_path)
+    assert second != first
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n// edited\n')
+    third = _kernels.source_digest(tmp_path)
+    assert third not in (first, second)
+    (tmp_path / "b.cuh").write_text("#pragma once\n")   # a new header
+    assert _kernels.source_digest(tmp_path) not in (first, second, third)
+
+
+def test_package_data_ships_every_build_input():
+    """An installed port builds from the ``csrc`` files its package data
+    lists: every source and every header a source includes must match one
+    of ``slideo_tpu_torch``'s globs in ``pyproject.toml``."""
+    root = Path(__file__).resolve().parents[1]
+    with open(root / "pyproject.toml", "rb") as f:
+        globs = tomllib.load(f)["tool"]["setuptools"]["package-data"]["slideo_tpu_torch"]
+    pkg = root / "slideo_tpu_torch"
+    shipped = {p for g in globs for p in pkg.glob(g)}
+    csrc = pkg / "csrc"
+    sources = sorted(csrc.glob("*.cu"))
+    assert sources and set(sources) <= shipped
+    for src in sources:
+        for name in re.findall(r'^\s*#\s*include\s+"([^"]+)"', src.read_text(), re.M):
+            header = csrc / name
+            assert header.is_file(), f"{src.name} includes {name}, not in csrc/"
+            assert header in shipped, f"{name} (included by {src.name}) is not in package-data"
 
 
 def _screen_both(qdesc: np.ndarray, desc: np.ndarray, valid: np.ndarray, cfg):
