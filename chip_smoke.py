@@ -17,9 +17,14 @@ Phases:
    at the shapes the match path gives it: K1 (bit-equal on a frame's atlas
    and on a corner-dense atlas, the pyramid of a uniform-noise frame, each
    with its candidate share and content-aware bound, and on an odd width,
-   an unaligned view and a 7 x 9 image), K3+K4, K5 (bit-equal at Q=768
-   and Q=2048 x 64 slides, and on an adversarial index made to break its
-   tie rule, over all slides and over a slide list with repeated ids), K6
+   an unaligned view and a 7 x 9 image), K3+K4 (within the describe
+   tolerance of its plain version on ``orb_cases``: a slide's 2048 slots
+   and a frame's strongest 768 and 2048, the three timed shapes, and
+   patches past the atlas's bottom and right edges, padded slots, odd and
+   even origins, K = 1 and 37, an odd width and a 2-byte aligned view), K5
+   (bit-equal at Q=768 and Q=2048 x 64 slides, and on an adversarial index
+   made to break its tie rule, over all slides and over a slide list with
+   repeated ids), K6
    (10 candidates at stride 2, one mapping partly outside the frame), K6h
    (K6's homography form: 10 perspective candidates at stride 2, one
    mapping partly outside, one whose denominator crosses zero inside the
@@ -88,6 +93,10 @@ each held bit-equal to the plain version first.
 same for versions of ``csrc/screen.cu`` (each exporting ``slideo_screen``)
 on a random index of phase 5's shape: ptxas's resources and SASS counts,
 bit-equality on every K5 (b) case, device ms at 64 frames and one frame.
+``python3 chip_smoke.py --compare-orb SOURCE [SOURCE ...]`` does the same
+for versions of ``csrc/orb.cu`` (the current launcher, or the earlier one
+that takes patch origins): ptxas's resources and SASS counts, every K3+K4
+case of ``orb_cases``, device ms at the three describe shapes.
 
 Every path (phases 4, 5 screened, 6a, 6b, 7's profile, 8a, 8b screened
 and exact) runs with the launch counts set to 0 just before it and read
@@ -463,44 +472,21 @@ def phase_kernels(torch, deck: np.ndarray, frame: np.ndarray, seed: int, smi: st
     check_fast_edges(torch, dense, cfg.orb.fast_threshold, "csrc/fast.cu")
     del dense
 
-    # K3+K4: describe the 2048 keypoint slots of a slide.
+    # K3+K4: describe, held to its plain version on every case of
+    # ``orb_cases`` and timed at the main path's three shapes.
     slide_atlas = features.build_pyramid(torch.from_numpy(deck[0]).to(dev).float(), cfg.orb)
-    meta = features.pyramid_meta(*FRAME_HW, cfg.orb)
-    kps = features.detect_pyramid(slide_atlas, meta, cfg.orb)
-    y0, x0 = features.patch_origins_of(meta, kps, cfg.orb)
-    desc, bins = cuda_orb.orb_describe(slide_atlas, y0, x0)
-    pdesc, pbins, vals = cuda_orb.orb_describe_plain(slide_atlas, y0, x0, return_values=True)
-    torch.cuda.synchronize()
-    k = y0.shape[0]
-    bin_ok = (bins == pbins)
-    bit_ok = (desc == pdesc)
-    margin = (vals[:, 256:] - vals[:, :256]).abs()
-    big_bad = int((~bit_ok & (margin > 1.5)).sum())
-    bin_rate, bit_rate = float(bin_ok.float().mean()), float(bit_ok.float().mean())
-    print(f"[K3+K4] {k} keypoints ({int(kps.valid.sum())} valid): bins equal {bin_rate:.6f}, "
-          f"bits equal {bit_rate:.6f}, margin>1.5 disagreements {big_bad}")
-    for i in torch.nonzero(~bin_ok).flatten().tolist():
-        print(f"[K3+K4]   bin differs at slot {i}: kernel {int(bins[i])} plain {int(pbins[i])} "
-              f"(patch origin {int(y0[i])},{int(x0[i])})")
-    check(bin_rate >= 0.999, f"K3+K4 bins agree on {bin_rate} < 0.999")
-    check(bit_rate >= 0.995, f"K3+K4 bits agree on {bit_rate} < 0.995")
-    check(big_bad == 0, f"K3+K4 {big_bad} bits with margin > 1.5 disagree")
-    ms = cuda_ms({
-        "kernel": lambda: cuda_orb.orb_describe(slide_atlas, y0, x0),
-        "plain": lambda: cuda_orb.orb_describe_plain(slide_atlas, y0, x0),
-    })
-    dev_ms = device_ms({"kernel": lambda: cuda_orb.orb_describe(slide_atlas, y0, x0)}, ms)
-    # Reads the atlas pixels the 63 x 63 patches cover, writes 256 bits and a
-    # bin per keypoint; per keypoint ~4 ops per patch pixel for the moments
-    # and 512 samples of 64 multiply-adds for the bits.
-    marks = torch.zeros((1, 1, slide_atlas.shape[0] + 62, slide_atlas.shape[1] + 62), device=dev)
-    marks[0, 0, (y0 + 62).clamp(0, marks.shape[2] - 1).long(),
-          (x0 + 62).clamp(0, marks.shape[3] - 1).long()] = 1.0
-    covered = int(torch.nn.functional.max_pool2d(marks, 63, stride=1).sum())
+    cases, shapes = orb_cases(torch, slide_atlas, atlas, seed)
+    err = check_orb(torch, cases, "csrc/orb.cu", cuda_orb.orb_describe)
+    timed = {label: time_orb(torch, label, *shapes[label], smi, cuda_orb.orb_describe)
+             for label in ORB_SHAPES}
+    main = timed[ORB_SHAPES[0]]
+    sub_row = lambda t: dict(ms=t["ms"]["kernel"], device_ms=t["dev"]["kernel"],  # noqa: E731
+                             plain_ms=t["ms"]["plain"], **t["cost"])
     rows.append(kernel_row(
-        "orb_describe", "orb.cu", "slideo_tpu/ops/pallas_orb.py:330",
-        float((desc.float() - pdesc.float()).abs().max()), ms, dev_ms,
-        bound(covered * 2 + k * (256 + 4 + 8), k * (4 * 63 * 63 + 512 * 64 * 2), "f32"),
+        "orb_describe", "orb.cu", "slideo_tpu/ops/pallas_orb.py:330", err, main["ms"], main["dev"],
+        main["cost"], shape=ORB_SHAPES[0],
+        frame_q768=dict(shape=ORB_SHAPES[1], **sub_row(timed[ORB_SHAPES[1]])),
+        frame_q2048=dict(shape=ORB_SHAPES[2], **sub_row(timed[ORB_SHAPES[2]])),
     ))
 
     # K5: exact table, frame queries x 64 slides x 2048 slots, in both query
@@ -583,6 +569,246 @@ def phase_kernels(torch, deck: np.ndarray, frame: np.ndarray, seed: int, smi: st
     for r in rows:
         print_row(r, smi)
     return rows
+
+
+ORB_SHAPES = ("slide atlas K=2048", "frame atlas Q=768", "frame atlas Q=2048")
+
+
+def orb_cases(torch, slide_atlas, frame_atlas, seed: int):
+    """K3+K4's inputs (atlas, (y, x, level, level table)): the cases it is
+    held to its plain version on, as (label, atlas, inputs), and the main
+    path's three shapes by ``ORB_SHAPES`` label. The shapes: the 2048 slots
+    of a slide's pyramid atlas (index build) and the strongest 768 and 2048
+    of a frame's (``features.strongest``, the two query buckets). The other
+    cases: keypoints of levels that run past the atlas's bottom and right
+    edges; padded slots (y = x = level 0) after 40 real ones; random
+    keypoints over the pyramid's levels, whose origins take both parities
+    in y and x; K = 1 and K = 37; an odd-width crop [400, 1001]; and a
+    [400, 640] view one pixel into the atlas, whose ``data_ptr`` is only
+    2-byte aligned."""
+    from slideo_tpu_torch import DEFAULT_CONFIG
+    from slideo_tpu_torch.ops import cuda_orb, features
+
+    cfg = DEFAULT_CONFIG.orb
+    dev = frame_atlas.device
+    rng = np.random.RandomState(seed + 5)
+    i32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32), device=dev)  # noqa: E731
+    meta = features.pyramid_meta(*FRAME_HW, cfg)
+    table = features._level_tables(meta, cfg, dev)[0]
+
+    def of(kps):
+        return kps.y.contiguous(), kps.x.contiguous(), kps.level.contiguous(), table
+
+    def scattered(n: int, levels: np.ndarray):
+        """n keypoints uniform over the levels (columns of a level table)."""
+        lv = rng.randint(0, levels.shape[1], n)
+        y = (rng.rand(n) * levels[2, lv]).astype(np.int32)
+        x = (rng.rand(n) * levels[3, lv]).astype(np.int32)
+        return i32(y), i32(x), i32(lv), i32(levels)
+
+    slide_kps = features.detect_pyramid(slide_atlas, meta, cfg)
+    frame_kps = features.detect_pyramid(frame_atlas, meta, cfg)
+    shapes = {
+        ORB_SHAPES[0]: (slide_atlas, of(slide_kps)),
+        ORB_SHAPES[1]: (frame_atlas, of(features.strongest(frame_kps, 768))),
+        ORB_SHAPES[2]: (frame_atlas, of(features.strongest(frame_kps, cfg.max_keypoints))),
+    }
+    ha, wa = frame_atlas.shape
+    # columns: the whole atlas; a corner level smaller than a patch; a strip
+    # along the bottom; a strip along the right edge
+    edges = np.array([[0, ha - 40, ha - 20, 100], [0, wa - 50, 100, wa - 10],
+                      [ha, 40, 20, 300], [wa, 50, 300, 10]], np.int32)
+    y, x, lv, _ = of(features.strongest(frame_kps, 768))
+    zeros = torch.zeros(24, dtype=torch.int32, device=dev)
+    padded = (torch.cat([y[:40], zeros]), torch.cat([x[:40], zeros]),
+              torch.cat([lv[:40], zeros]), table)
+    levels = table.cpu().numpy()
+    odd = frame_atlas[:400, :1001].contiguous()
+    view = frame_atlas.flatten()[1:1 + 400 * 640].view(400, 640)
+    check(view.data_ptr() % 4 == 2, "the unaligned K3+K4 view is 4-byte aligned")
+    one_level = lambda h, w: np.array([[0], [0], [h], [w]], np.int32)  # noqa: E731
+    cases = [(label, *shapes[label]) for label in ORB_SHAPES] + [
+        ("edges", frame_atlas, scattered(256, edges)),
+        ("padded slots", frame_atlas, padded),
+        ("random over levels", frame_atlas, scattered(512, levels)),
+        ("K=1", frame_atlas, tuple(t[:1] for t in (y, x, lv)) + (table,)),
+        ("K=37", frame_atlas, tuple(t[:37] for t in (y, x, lv)) + (table,)),
+        ("odd width", odd, scattered(300, one_level(*odd.shape))),
+        ("2-byte aligned view", view, scattered(300, one_level(*view.shape))),
+    ]
+    y0, x0 = cuda_orb.level_origins(*cases[3][2])
+    check(bool((y0 + 63 > ha).any()) and bool((x0 + 63 > wa).any()),
+          "no K3+K4 edge case patch runs past the atlas's bottom and right edges")
+    y0, x0 = cuda_orb.level_origins(*cases[5][2])
+    check(all(bool(((o % 2) == p).any()) for o in (y0, x0) for p in (0, 1)),
+          "the K3+K4 random case lacks an odd or an even origin")
+    return cases, shapes
+
+
+def check_orb(torch, cases: list, tag: str, describe) -> float:
+    """Hold ``describe`` (``orb_describe``'s signature) to the plain version
+    on every case: bins equal on >= 99.9% of keypoints, bits on >= 99.5%,
+    none of the bits whose two samples differ by more than 1.5 flipped.
+    Returns the largest |kernel - plain| of a descriptor entry."""
+    from slideo_tpu_torch.ops import cuda_orb
+
+    err = 0.0
+    for label, atlas, args in cases:
+        desc, bins = describe(atlas, *args)
+        pdesc, pbins, vals = cuda_orb.orb_describe_plain(atlas, *args, return_values=True)
+        torch.cuda.synchronize()
+        bin_ok = bins == pbins
+        bit_ok = desc == pdesc
+        big_bad = int((~bit_ok & ((vals[:, 256:] - vals[:, :256]).abs() > 1.5)).sum())
+        bin_rate, bit_rate = float(bin_ok.float().mean()), float(bit_ok.float().mean())
+        err = max(err, float((desc.float() - pdesc.float()).abs().max()))
+        print(f"[K3+K4] {tag} {label}: atlas {tuple(atlas.shape)}, K={bins.shape[0]}: bins equal "
+              f"{bin_rate:.6f}, bits equal {bit_rate:.6f}, margin>1.5 disagreements {big_bad}")
+        for i in torch.nonzero(~bin_ok).flatten().tolist():
+            print(f"[K3+K4]   bin differs at slot {i}: kernel {int(bins[i])} plain {int(pbins[i])}")
+        check(bin_rate >= 0.999, f"K3+K4 ({tag}, {label}) bins agree on {bin_rate} < 0.999")
+        check(bit_rate >= 0.995, f"K3+K4 ({tag}, {label}) bits agree on {bit_rate} < 0.995")
+        check(big_bad == 0, f"K3+K4 ({tag}, {label}) {big_bad} bits with margin > 1.5 disagree")
+    return err
+
+
+def orb_bound(torch, atlas, args) -> dict:
+    """K3+K4's bound on ``args``: it reads the atlas pixels its patches cover,
+    12 B of keypoint and the packed tables of the bins it uses (36 B a
+    sample), writes 256 bits and a bin per keypoint; per keypoint ~4 f32
+    operations a patch pixel for the moments and 512 samples of 64
+    multiply-adds for the bits."""
+    from slideo_tpu_torch.ops import cuda_orb
+
+    y0, x0 = cuda_orb.level_origins(*args)
+    k = y0.shape[0]
+    marks = torch.zeros((1, 1, atlas.shape[0] + 62, atlas.shape[1] + 62), device=atlas.device)
+    marks[0, 0, (y0 + 62).clamp(0, marks.shape[2] - 1).long(),
+          (x0 + 62).clamp(0, marks.shape[3] - 1).long()] = 1.0
+    covered = int(torch.nn.functional.max_pool2d(marks, 63, stride=1).sum())
+    n_bins = int(torch.unique(cuda_orb.orb_describe_plain(atlas, *args)[1]).numel())
+    return bound(covered * 2 + k * (12 + 256 + 4) + n_bins * 512 * 36,
+                 k * (4 * 63 * 63 + 512 * 64 * 2), "f32")
+
+
+def time_orb(torch, label: str, atlas, args, smi: str, describe, plain: bool = True) -> dict:
+    """Call ms of ``describe`` (and of the plain version), device ms of
+    ``describe``, and the bound, on one input."""
+    from slideo_tpu_torch.ops import cuda_orb
+
+    fns = {"kernel": lambda: describe(atlas, *args)}
+    if plain:
+        fns["plain"] = lambda: cuda_orb.orb_describe_plain(atlas, *args)
+    ms = cuda_ms(fns)
+    dev = device_ms({"kernel": fns["kernel"]}, ms)
+    cost = orb_bound(torch, atlas, args)
+    pl = f"; plain {ms['plain']:.4f} ms" if plain else ""
+    print(f"[time] orb_describe {label} (K={args[0].shape[0]}): kernel call {ms['kernel']:.4f} ms, "
+          f"device {dev['kernel']:.4f} ms{pl}; bound {cost['bound_ms']:.4f} ms ({cost['bound_by']}) "
+          f"({smi})")
+    return dict(ms=ms, dev=dev, cost=cost)
+
+
+def orb_tile(text: str) -> tuple:
+    """``cuda_orb.TILE`` of a version of csrc/orb.cu, from its PITCH and
+    COPY1 constants (no COPY1: an f32 tile of that pitch)."""
+    import re
+
+    pitch = int(re.search(r"constexpr int PITCH = (\d+);", text).group(1))
+    copy1 = re.search(r"constexpr int COPY1 = PATCH \* PITCH \+ (\d+);", text)
+    return ("bf16", pitch, 63 * pitch + int(copy1.group(1))) if copy1 else ("f32", pitch, 0)
+
+
+# C signature of the describe launcher before the kernel formed its patch
+# origins: atlas, h, w, y0, x0, k, a_start, a_w, d_start, d_w, bins,
+# out, stream.
+_P, _I = "p", "i"
+ORIGINS_SIGNATURE = (_P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P)
+
+
+def origins_describe(torch, lib):
+    """``orb_describe``'s signature over a library whose launcher takes
+    patch origins and the compact f32 tables (``ORIGINS_SIGNATURE``): the
+    origins of each input are formed once, outside any timing, as that
+    launcher's callers did."""
+    from slideo_tpu_torch.ops import cuda_orb
+
+    tables = [torch.from_numpy(t).to("cuda")
+              for t in cuda_orb._patch_tables(256, 0x51DE0, 7, 2.0)[2:]]
+    origins = {}
+
+    def describe(atlas, y, x, level, table):
+        key = (y.data_ptr(), x.data_ptr(), level.data_ptr(), table.data_ptr(), y.shape[0])
+        if key not in origins:
+            origins[key] = cuda_orb.level_origins(y, x, level, table)
+        y0, x0 = origins[key]
+        k = y0.shape[0]
+        desc = torch.empty((k, 256), dtype=torch.int8, device=atlas.device)
+        bins = torch.empty((k,), dtype=torch.int32, device=atlas.device)
+        rc = lib.slideo_orb_describe(atlas.data_ptr(), *atlas.shape, y0.data_ptr(), x0.data_ptr(), k,
+                                     *(t.data_ptr() for t in tables), bins.data_ptr(),
+                                     desc.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"the origins-form describe launcher failed: cudaError {rc}")
+        return desc, bins
+
+    return describe
+
+
+def phase_compare_orb(torch, sources: list[str], seed: int, smi: str) -> None:
+    """Versions of csrc/orb.cu side by side: each source (exporting
+    ``slideo_orb_describe``, in the current C signature or in the earlier
+    one that takes patch origins, ``ORIGINS_SIGNATURE``) is built into a
+    library of its own; ptxas's registers, spills and shared memory and the
+    SASS counts of LDS (and its 64- and 128-bit forms), LDGSTS, UTMALDG,
+    FFMA, BAR and SHFL are printed. On a slide and a warped frame of a
+    synthetic deck, each version is held to the plain version on every case
+    of ``orb_cases`` and timed at the three ``ORB_SHAPES``, in turns,
+    forwards then backwards. A version's tables follow its tile
+    (``orb_tile``)."""
+    import ctypes
+
+    from slideo_tpu_torch import DEFAULT_CONFIG, _kernels
+    from slideo_tpu_torch.ops import cuda_orb, features
+
+    ctype = {_P: ctypes.c_void_p, _I: ctypes.c_int}
+    libs = {}
+    for src in sources:
+        text = Path(src).read_text()
+        origins = "const void* y0" in text
+        sig = {"slideo_orb_describe": tuple(ctype[c] for c in ORIGINS_SIGNATURE)} if origins else None
+        lib, resources, ops = compare_library(src, len(libs), ("slideo_orb_describe",), sig)
+        lds = lambda width: sum(n for op, n in ops.items()  # noqa: E731
+                                if op.startswith("LDS.") and op.endswith(f".{width}"))
+        print(f"[compare] {src}: {resources}; {sum(n for op, n in ops.items() if '.' not in op)} "
+              f"SASS instructions, LDS {ops['LDS']} (64-bit {lds(64)}, 128-bit {lds(128)}), " + ", ".join(
+                  f"{op} {ops[op]}" for op in ("LDGSTS", "UTMALDG", "FFMA", "BAR", "SHFL")))
+        libs[src] = (lib, None if origins else orb_tile(text))
+    rng = np.random.RandomState(seed)
+    pyramid = lambda img: features.build_pyramid(  # noqa: E731
+        torch.from_numpy(img).to("cuda").float(), DEFAULT_CONFIG.orb)
+    deck = make_deck(rng, 2)
+    cases, shapes = orb_cases(torch, pyramid(deck[0]),
+                              pyramid(with_noise(warp(deck[1], rng), rng, 1.5)), seed)
+    times = {src: {label: [] for label in ORB_SHAPES} for src in sources}
+    tile = cuda_orb.TILE
+    try:
+        for turn, names in enumerate((sources, sources[::-1])):
+            for src in names:
+                lib, src_tile = libs[src]
+                if src_tile is None:
+                    describe = origins_describe(torch, lib)
+                else:
+                    _kernels._lib, cuda_orb.TILE, describe = lib, src_tile, cuda_orb.orb_describe
+                print(f"[compare] {src}, turn {turn}, tile {src_tile}")
+                check_orb(torch, cases, src, describe)
+                for label in ORB_SHAPES:
+                    t = time_orb(torch, f"{src} {label}", *shapes[label], smi, describe, plain=False)
+                    times[src][label].append(t["dev"]["kernel"])
+    finally:
+        _kernels._lib, cuda_orb.TILE = None, tile
+    for src in sources:
+        print(f"[compare] {src}: device ms " + "; ".join(
+            f"{label} {min(t):.4f}-{max(t):.4f}" for label, t in times[src].items()) + f" ({smi})")
 
 
 def homography_params(torch, dev, t: int, seed: int = 7):
@@ -767,11 +993,13 @@ def time_screen(torch, label: str, query, di, n_slides: int, k: int, smi: str,
     return ms, dev
 
 
-def compare_library(src: str, index: int, symbols: tuple):
+def compare_library(src: str, index: int, symbols: tuple, signatures: dict | None = None):
     """``src`` built alone into a library of its own with ``-Xptxas -v``
-    (headers from csrc/), the C signatures of ``symbols`` bound; returns
-    the library, ptxas's resource lines and the counts of the SASS opcodes
-    (the name before the first dot) from ``cuobjdump -sass``."""
+    (headers from csrc/), the C signatures of ``symbols`` bound (from
+    ``signatures``, else ``_kernels._SIGNATURES``); returns the library,
+    ptxas's resource lines and the counts of the SASS opcodes from
+    ``cuobjdump -sass``: by name (before the first dot) and, for an opcode
+    with modifiers, also in full (``LDS.U.128``)."""
     import collections
     import ctypes
     import re
@@ -788,10 +1016,14 @@ def compare_library(src: str, index: int, symbols: tuple):
                  if "registers" in line or "spill" in line]
     sass = subprocess.run([str(Path(_kernels._nvcc()).parent / "cuobjdump"), "-sass", str(so)],
                           capture_output=True, text=True, check=True).stdout
-    ops = collections.Counter(re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)", sass))
+    ops = collections.Counter()
+    for op in re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)", sass):
+        ops[op.split(".")[0]] += 1
+        if "." in op:
+            ops[op] += 1
     lib = ctypes.CDLL(str(so))
     for name in symbols:
-        getattr(lib, name).argtypes = _kernels._SIGNATURES[name]
+        getattr(lib, name).argtypes = (signatures or _kernels._SIGNATURES)[name]
         getattr(lib, name).restype = ctypes.c_int
     return lib, resources, ops
 
@@ -812,7 +1044,7 @@ def phase_compare_screen(torch, sources: list[str], seed: int, smi: str) -> None
     libs = {}
     for src in sources:
         lib, resources, ops = compare_library(src, len(libs), ("slideo_screen",))
-        print(f"[compare] {src}: {resources}; {sum(ops.values())} SASS instructions, " + ", ".join(
+        print(f"[compare] {src}: {resources}; {sum(n for op, n in ops.items() if '.' not in op)} SASS instructions, " + ", ".join(
             f"{op} {ops[op]}" for op in ("IMMA", "IDP", "LDSM", "LDGSTS", "LDS")))
         libs[src] = lib
     dev = torch.device("cuda")
@@ -875,7 +1107,7 @@ def phase_compare_fast(torch, sources: list[str], seed: int, smi: str) -> None:
     libs = {}
     for src in sources:
         lib, resources, ops = compare_library(src, len(libs), ("slideo_fast_nms", "slideo_fast_nms_batch"))
-        print(f"[compare] {src}: {resources}; {sum(ops.values())} SASS instructions, " + ", ".join(
+        print(f"[compare] {src}: {resources}; {sum(n for op, n in ops.items() if '.' not in op)} SASS instructions, " + ", ".join(
             f"{op} {ops[op]}" for op in ("HMNMX2", "VHMNMX", "FMNMX", "F2FP", "LDS", "LDG", "STG")))
         libs[src] = lib
     thr = DEFAULT_CONFIG.orb.fast_threshold
@@ -1437,6 +1669,9 @@ def main() -> None:
     ap.add_argument("--compare-screen", nargs="+", metavar="SOURCE",
                     help="only check and time these versions of csrc/screen.cu against each "
                          "other, then exit")
+    ap.add_argument("--compare-orb", nargs="+", metavar="SOURCE",
+                    help="only check and time these versions of csrc/orb.cu against each "
+                         "other, then exit")
     args = ap.parse_args()
 
     import torch
@@ -1452,6 +1687,9 @@ def main() -> None:
         return
     if args.compare_screen:
         phase_compare_screen(torch, args.compare_screen, args.seed, smi)
+        return
+    if args.compare_orb:
+        phase_compare_orb(torch, args.compare_orb, args.seed, smi)
         return
     rng = np.random.RandomState(args.seed)
     t0 = time.perf_counter()

@@ -45,8 +45,9 @@ _SIGNATURES = {
     "slideo_fast_nms": (_P, _P, _I, _I, _F, _P),
     # imgs, out, b, h, w, threshold, stream
     "slideo_fast_nms_batch": (_P, _P, _I, _I, _I, _F, _P),
-    # atlas, h, w, y0, x0, k, a_start, a_w, d_start, d_w, bins, out, stream
-    "slideo_orb_describe": (_P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P),
+    # atlas, h, w, y, x, level, level_table, n_levels, k, heads, weights, bins,
+    # out, stream
+    "slideo_orb_describe": (_P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P),
     # query, q, desc, valid, n_slides, n_cols, k_per_slide, slide_list, best, arg, stream
     "slideo_match_table": (_P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P),
     # query, q, desc, valid, n_slides, k_per_slide, best, stream

@@ -21,7 +21,7 @@ from ..config import OrbConfig
 
 from . import top_k
 from .cuda_fast import fast_score_map
-from .cuda_orb import orb_describe, patch_origins
+from .cuda_orb import level_origins, orb_describe
 
 __all__ = [
     "Features",
@@ -34,6 +34,7 @@ __all__ = [
     "detect_pyramid",
     "detect_from_scores",
     "patch_origins_of",
+    "strongest",
     "describe",
     "extract_features",
 ]
@@ -239,12 +240,16 @@ def patch_origins_of(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Atlas top-left (y0, x0) of each keypoint's 63x63 patch, clamped
     inside the keypoint's own level (padded slots clamp harmlessly)."""
-    ints, _ = _level_tables(meta, cfg, kps.y.device)
-    lvl = kps.level.long()
-    y_lo, x_lo = ints[0][lvl], ints[1][lvl]
-    return patch_origins(
-        kps.y + y_lo, kps.x + x_lo, y_lo, y_lo + ints[2][lvl], x_lo, x_lo + ints[3][lvl]
-    )
+    return level_origins(kps.y, kps.x, kps.level, _level_tables(meta, cfg, kps.y.device)[0])
+
+
+def strongest(kps: Keypoints, q: int) -> Keypoints:
+    """The ``q`` strongest keypoint slots, valid ones first (all of them
+    when ``q`` is not below their count)."""
+    if q >= kps.score.shape[0]:
+        return kps
+    _, sel = top_k(torch.where(kps.valid, kps.score, -1.0), q)
+    return Keypoints(*(f[sel] for f in kps))
 
 
 def describe(
@@ -252,20 +257,17 @@ def describe(
 ) -> Features:
     """Descriptors for the strongest ``q`` keypoint slots. With ``q`` at
     least the valid count the compaction only drops padding slots."""
-    if q < kps.score.shape[0]:
-        key = torch.where(kps.valid, kps.score, -1.0)
-        _, sel = top_k(key, q)
-        kps = Keypoints(*(f[sel] for f in kps))
+    kps = strongest(kps, q)
 
-    y0, x0 = patch_origins_of(meta, kps, cfg)
+    ints, scales = _level_tables(meta, cfg, atlas.device)
     desc, _ = orb_describe(
-        atlas, y0, x0, cfg.descriptor_bits, cfg.pattern_seed,
+        atlas, kps.y, kps.x, kps.level, ints, cfg.descriptor_bits, cfg.pattern_seed,
         cfg.blur_ksize, cfg.blur_sigma,
     )
     desc = torch.where(kps.valid[:, None], desc, 0).to(torch.int8)
 
     # Exact level->level0 affine map of the successive 1.2x resizes.
-    r = _level_tables(meta, cfg, atlas.device)[1][kps.level.long()]
+    r = scales[kps.level.long()]
     half = (r - 1.0) * 0.5
     pts = torch.stack(
         [kps.x.to(torch.float32) * r + half, kps.y.to(torch.float32) * r + half],

@@ -81,11 +81,25 @@ def described():
     ))
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32))
     y0, x0 = cuda_orb.patch_origins(t(ys), t(xs), t(y_lo), t(y_hi), t(x_lo), t(x_hi))
-    desc, bins, vals = cuda_orb.orb_describe_plain(atlas_t, y0, x0, return_values=True)
-    return dict(
-        atlas=atlas, atlas_t=atlas_t, meta=meta, kps=kps, y0=y0.numpy(), x0=x0.numpy(),
-        want=want, desc=desc.numpy(), bins=bins.numpy(), vals=vals.numpy(),
+    table = tfeat._level_tables(meta, TORB, torch.device("cpu"))[0]
+    desc, bins, vals = cuda_orb.orb_describe_plain(
+        atlas_t, kps.y, kps.x, kps.level, table, return_values=True
     )
+    return dict(
+        atlas=atlas, atlas_t=atlas_t, meta=meta, kps=kps, table=table, y0=y0.numpy(),
+        x0=x0.numpy(), want=want, desc=desc.numpy(), bins=bins.numpy(), vals=vals.numpy(),
+    )
+
+
+def _kernel_origins(y, x, level, table):
+    """The patch origins as orb.cu's ``origin_of`` forms them, one keypoint
+    at a time in integers."""
+    out = []
+    for yk, xk, lk in zip(y, x, level):
+        yo, xo, h, w = (int(v) for v in table[:, lk])
+        out.append((min(max(int(yk) + yo - 31, yo), max(yo + h - 63, yo)),
+                    min(max(int(xk) + xo - 31, xo), max(xo + w - 63, xo))))
+    return np.array(out, np.int32).reshape(-1, 2).T
 
 
 def test_brief_pattern_identical():
@@ -176,9 +190,22 @@ def test_describe_features_match_jax_layout(described):
         assert not got.desc.numpy()[~got.valid.numpy()].any()
 
 
+def test_kernel_origins_equal_patch_origins_of(described):
+    """The kernel's origin arithmetic from (y, x, level, level table)
+    equals ``features.patch_origins_of`` and the fixture's origins, formed
+    from absolute centres and per-keypoint bounds as the TPU wrapper does."""
+    d = described
+    kps = d["kps"]
+    y0, x0 = _kernel_origins(kps.y.numpy(), kps.x.numpy(), kps.level.numpy(), d["table"].numpy())
+    of = tfeat.patch_origins_of(d["meta"], kps, TORB)
+    assert np.array_equal(y0, of[0].numpy()) and np.array_equal(x0, of[1].numpy())
+    assert np.array_equal(y0, d["y0"]) and np.array_equal(x0, d["x0"])
+
+
 def test_padded_slots_clamp():
     """Padded keypoint slots (level bounds of the patch size, centers at
-    the atlas corner) clamp inside the atlas, as in test_pallas_orb."""
+    the atlas corner) clamp inside the atlas, as in test_pallas_orb. Each
+    keypoint's bounds are one level-table column of its own."""
     rng = np.random.RandomState(0)
     h, w = 140, 260
     atlas = (rng.rand(h, w) * 255).astype(np.float32)
@@ -192,9 +219,15 @@ def test_padded_slots_clamp():
         jnp.asarray(atlas).astype(jnp.bfloat16), *map(jnp.asarray, (ys, xs, y_lo, y_hi, x_hi)),
         interpret=True, x_lo=jnp.asarray(x_lo), pass2="sublanes_loop",
     ))
-    t = lambda a: torch.from_numpy(a)
-    y0, x0 = cuda_orb.patch_origins(t(ys), t(xs), t(y_lo), t(y_hi), t(x_lo), t(x_hi))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32))
+    table = np.stack([y_lo, x_lo, y_hi - y_lo, x_hi - x_lo])
+    level = np.arange(3, dtype=np.int32)
+    y, x = ys - y_lo, xs - x_lo
+    y0, x0 = cuda_orb.level_origins(t(y), t(x), t(level), t(table))
     assert y0.tolist() == [0, 39, 0] and x0.tolist() == [0, 99, 0]
-    desc, bins = cuda_orb.orb_describe(torch.from_numpy(atlas).to(torch.bfloat16), y0, x0)
+    assert np.array_equal(_kernel_origins(y, x, level, table), [[0, 39, 0], [0, 99, 0]])
+    desc, bins = cuda_orb.orb_describe(
+        torch.from_numpy(atlas).to(torch.bfloat16), t(y), t(x), t(level), t(table)
+    )
     assert set(np.unique(desc.numpy())) <= {-1, 1}
     assert (desc.numpy() == want).mean() >= 0.995
