@@ -37,17 +37,29 @@ Phases:
 5. The screened path (decks above ``screen_above_slides`` = 96 slides): a
    500-slide 1080x1920 deck of near-duplicate families (100 pages, each
    revealed line by line into 5 slides) and 80 sampled frames (runs of
-   adjacent family members, noise, blank). It holds K5 mode (b) bit-equal
-   to its plain version on 64 frames' stacked query prefixes, on one
-   frame's and on a ragged last batch of 37 frames' (R = 9,472), and on
-   the 1,000 query prefixes of the adversarial index at K = 2048 and
-   K = 1000 (``screen_cases``), times it at 64 frames and at one frame
-   (there beside ``torch._int_mm`` of the product alone), and K5 mode
-   (a) bit-equal over a frame's 16 listed slides in both query buckets and
-   over all 500 slides at Q=2048 (each timed), checks the
-   timeline through the port's ``Db``, checks that the screened run
-   assigns every matched frame the slide the exact run (screening off)
-   assigns, and that the screened run launched ``screen`` and ``table``.
+   adjacent family members, noise, blank), through the engine three
+   times: screened (single-stage stage 1), exact (screening off) and with
+   the strided pre-vote (``screen_prevote=True``). Each timeline is
+   checked through the port's ``Db``; the screened and the pre-vote runs
+   must assign every matched frame the exact run's slide; the screened
+   run launched ``screen`` and ``table`` and no pre-vote form, the
+   pre-vote run ``screen_strided``, ``screen_listed`` and ``table`` and
+   not ``screen``. Then K5 mode (b) is held bit-equal to its plain version
+   in its three forms (``screen_cases``): the single stage on 64 frames'
+   stacked query prefixes, one frame's, a ragged last batch of 37 frames'
+   (R = 9,472) and the 1,000 query prefixes of the adversarial index at
+   K = 2048 and 1000; the strided form (stride 4) on each frame's 128
+   strongest rows of 64, one and 37 frames and on the adversarial index
+   (K = 1000 at stride 8); the listed form on 64 frames' rows against the
+   64 slides the pre-vote lists for each, one frame, 37 frames, groups of
+   200 and 300 rows and the adversarial index in 8 groups whose lists
+   repeat a slide and name the one without a valid slot. The pre-vote's
+   candidates of the 64 frames from the kernels equal those from the plain
+   versions. Every case is timed; each form also at 64 frames and one frame
+   beside its plain version (and ``torch._int_mm`` of the product alone at
+   one frame). Last, K5 mode (a) bit-equal over a frame's 16 listed
+   slides in both query buckets and over all 500 slides at Q=2048 (each
+   timed).
 6. The multi-device path, on every visible card or, with one card, on a
    mesh of two entries of ``cuda:0`` (it shows the path is right, not that
    it scales). (a) Frame DP: phase 4's deck and stream through
@@ -90,16 +102,19 @@ and 2 and then only times versions of ``csrc/fast.cu`` (the checked-in one
 or edited copies keeping its two launchers) against each other in turns,
 each held bit-equal to the plain version first.
 ``python3 chip_smoke.py --compare-screen SOURCE [SOURCE ...]`` does the
-same for versions of ``csrc/screen.cu`` (each exporting ``slideo_screen``)
-on a random index of phase 5's shape: ptxas's resources and SASS counts,
-bit-equality on every K5 (b) case, device ms at 64 frames and one frame.
+same for versions of ``csrc/screen.cu`` (each exporting ``slideo_screen``,
+in the current signature or in the earlier single-stage one of 8
+arguments) on a random index of phase 5's shape: ptxas's resources and
+SASS counts, bit-equality on every K5 (b) case a version takes, device ms
+at 64 frames and one frame and, for the current signature, of the
+strided and listed forms at 64 frames.
 ``python3 chip_smoke.py --compare-orb SOURCE [SOURCE ...]`` does the same
 for versions of ``csrc/orb.cu`` (the current launcher, or the earlier one
 that takes patch origins): ptxas's resources and SASS counts, every K3+K4
 case of ``orb_cases``, device ms at the three describe shapes.
 
-Every path (phases 4, 5 screened, 6a, 6b, 7's profile, 8a, 8b screened
-and exact) runs with the launch counts set to 0 just before it and read
+Every path (phases 4, 5 screened and pre-vote, 6a, 6b, 7's profile, 8a,
+8b screened and exact) runs with the launch counts set to 0 just before it and read
 just after; a kernel's ``launches`` is its count summed over them, where
 the table launches of 6b are K5 (c)'s and the others K5 (a)'s. Every kernel has two times: call
 ms (``cuda_ms``: one wrapper call between two CUDA events, the wrapper's
@@ -919,87 +934,151 @@ def time_table(torch, label: str, query, di, n_slides: int, k: int, slide_ids, s
     return ms, dev
 
 
-def screen_bound(r: int, n_slides: int, k: int) -> dict:
-    """K5 (b) reads each slot's 128-byte prefix and valid byte and the
-    queries once and writes [R, S] int32; 2 * 128 int8 operations a
-    (query, slot) pair."""
-    n_idx = n_slides * k
-    return bound(n_idx * 129 + r * 128 + r * n_slides * 4, 2 * r * n_idx * 128, "int8")
+def screen_bound(r: int, n_cols: int, n_slots: int, n_read: int) -> dict:
+    """K5 (b) must read the 128-byte prefix and the valid byte of each of
+    ``n_slots`` slots (K / stride in the strided form) of each of the
+    ``n_read`` distinct slides it scores once, and the queries once, and
+    write [R, n_cols] int32; 2 * 128 int8 operations a (query, slot) pair."""
+    return bound(n_read * n_slots * 129 + r * 128 + r * n_cols * 4,
+                 2 * r * n_cols * n_slots * 128, "int8")
 
 
-def screen_cases(torch, prefixes, per_frame: int, di, n_slides: int, k: int) -> list:
-    """K5 (b)'s shapes: (label, query, index, S, K, the plain version's
-    result). ``prefixes`` are a batch of frames' stacked ``per_frame``
-    query prefixes against the index ``di``; then one frame, a ragged last
-    batch of 37 frames, and the 1,000 query prefixes of
-    ``adversarial_table`` (phase 3's seed; every 7th row zero, a slide with
-    no valid slot, one valid only in its second half) at K = 2048 and at
-    K = 1000, which is not a multiple of the 64-slot tile."""
-    from slideo_tpu_torch.ops import cuda_screen, hamming
+def screen_cases(torch, prefixes, per_frame: int, di, n_slides: int, k: int, match) -> list:
+    """K5 (b)'s shapes in its three forms: (label, query, index, S, K,
+    stride, slide lists, the plain version's result).
+
+    Single stage: ``prefixes`` (a batch of frames' stacked ``per_frame``
+    query prefixes) against the index ``di``; one frame; a ragged last batch
+    of 37 frames; the 1,000 query prefixes of ``adversarial_table`` (phase
+    3's seed; every 7th row zero, slide 1 with no valid slot, slide 2 valid
+    only in its second half) at K = 2048 and at K = 1000, which is not a
+    multiple of the 64-slot tile. Strided (the pre-vote, stride
+    ``match.screen_prevote_k_stride``): each frame's first
+    ``screen_prevote_queries`` rows; one frame; 37 frames; the adversarial
+    index at K = 2048, and at K = 1000 with stride 8 (125 slots, a ragged
+    last tile). Listed (the re-vote): each frame's rows against its own P =
+    ``screen_prevote_slides`` slides, listed as the pre-vote picks them from
+    the strided case; one frame; 37 frames; groups of 200 rows (not a
+    multiple of the 256-query tile) and of 300 (a second, ragged tile a
+    group); the adversarial index at K = 2048 and 1000 in 8 groups of 125
+    rows, each listing ``adversarial_table``'s slide list (repeated ids,
+    the slide without a valid slot) rotated by its group."""
+    from slideo_tpu_torch.ops import cuda_screen, hamming, top_k
 
     dev = prefixes.device
-    cases = [(f"{prefixes.shape[0] // per_frame} frames", prefixes, di, n_slides, k),
-             ("one frame", prefixes[:per_frame], di, n_slides, k),
-             ("37 frames", prefixes[:37 * per_frame], di, n_slides, k)]
-    for k_adv in (2048, 1000):
-        query, desc, valid, _ = adversarial_table(3, k=k_adv)
-        adv = hamming.build_index(torch.from_numpy(desc).to(dev), torch.from_numpy(valid).to(dev))
-        q = torch.from_numpy(query[:, :cuda_screen.SCREEN_BITS].copy()).to(dev)
-        cases.append((f"adversarial K={k_adv}", q, adv, desc.shape[0], k_adv))
-    return [(*c, cuda_screen.screen_scores_plain(c[1], c[2].desc, c[2].valid, c[3], c[4]))
+    bits = cuda_screen.SCREEN_BITS
+    stride, p = match.screen_prevote_k_stride, match.screen_prevote_slides
+    npq = min(match.screen_prevote_queries, per_frame)
+    b = prefixes.shape[0] // per_frame
+    frames = prefixes.reshape(b, per_frame, bits)
+    strong = frames[:, :npq].reshape(-1, bits).contiguous()
+    best = cuda_screen.screen_scores_plain(strong, di.desc, di.valid, n_slides, k, stride)
+    pre = top_k(hamming._screen_votes(best.reshape(b, npq, n_slides)), p)[1].to(torch.int32)
+    deck = (di, n_slides, k)
+    cases = [(f"{b} frames", prefixes, *deck, 1, None),
+             ("one frame", prefixes[:per_frame], *deck, 1, None),
+             ("37 frames", prefixes[:37 * per_frame], *deck, 1, None),
+             (f"strided {b} frames", strong, *deck, stride, None),
+             ("strided one frame", strong[:npq], *deck, stride, None),
+             ("strided 37 frames", strong[:37 * npq], *deck, stride, None),
+             (f"listed {b} frames", prefixes, *deck, 1, pre),
+             ("listed one frame", prefixes[:per_frame], *deck, 1, pre[:1]),
+             ("listed 37 frames", prefixes[:37 * per_frame], *deck, 1, pre[:37]),
+             ("listed 200 rows a group", frames[:, :200].reshape(-1, bits).contiguous(), *deck, 1,
+              pre),
+             ("listed 300 rows a group", prefixes[:16 * 300], *deck, 1, pre[:16])]
+    for k_adv, adv_stride in ((2048, stride), (1000, 8)):
+        query, desc, valid, cand = adversarial_table(3, k=k_adv)
+        adv = (hamming.build_index(torch.from_numpy(desc).to(dev), torch.from_numpy(valid).to(dev)),
+               desc.shape[0], k_adv)
+        q = torch.from_numpy(query[:, :bits].copy()).to(dev)
+        lists = torch.from_numpy(np.stack([np.roll(cand, g) for g in range(8)])).to(dev)
+        cases += [(f"adversarial K={k_adv}", q, *adv, 1, None),
+                  (f"strided adversarial K={k_adv}, stride {adv_stride}", q, *adv, adv_stride,
+                   None),
+                  (f"listed adversarial K={k_adv}, 8 groups", q, *adv, 1, lists)]
+    return [(*c, cuda_screen.screen_scores_plain(c[1], c[2].desc, c[2].valid, *c[3:]))
             for c in cases]
 
 
-def check_screen(torch, cases: list, tag: str) -> dict:
+def check_screen(torch, cases: list, tag: str, single_only: bool = False) -> dict:
     """Hold K5 (b) bit-equal to its plain version on every case of
-    ``screen_cases``; returns each case's max abs error (0)."""
+    ``screen_cases`` (with ``single_only``, on its single-stage cases);
+    returns each case's max abs error (0)."""
     from slideo_tpu_torch.ops import cuda_screen
 
     errs = {}
-    for label, query, di, n_slides, k, want in cases:
-        got = cuda_screen.screen_scores(query, di.desc, di.valid, n_slides, k)
+    for label, query, di, n_slides, k, stride, ids, want in cases:
+        if single_only and (stride != 1 or ids is not None):
+            continue
+        got = cuda_screen.screen_scores(query, di.desc, di.valid, n_slides, k, stride, ids)
         torch.cuda.synchronize()
         same = torch.equal(got, want)
         errs[label] = float((got - want).abs().max())
-        print(f"[K5b] {tag} {label}: query {tuple(query.shape)} x {n_slides} slides x {k} slots: "
-              f"bit-equal {same}")
+        cols = f"{n_slides} slides" if ids is None else f"{tuple(ids.shape)} listed slides"
+        print(f"[K5b] {tag} {label}: query {tuple(query.shape)} x {cols} x {k} slots, stride "
+              f"{stride}: bit-equal {same}")
         check(same, f"K5 (b) screening kernel ({tag}) is not bit-equal to its plain version "
                     f"({label})")
     return errs
 
 
 def time_screen(torch, label: str, query, di, n_slides: int, k: int, smi: str,
-                library: bool = False, plain: bool = True) -> tuple[dict, dict]:
-    """Call ms of K5 (b) and of its plain version, device ms of K5 (b);
-    with ``library``, also of ``torch._int_mm`` of the product alone ([R,
-    128] @ [128, S*K], on a contiguous copy of the prefixes made here: no
-    mask, no max), which the port never calls."""
+                library: bool = False, plain: bool = True, stride: int = 1,
+                ids=None) -> tuple[dict, dict, dict]:
+    """Call ms of K5 (b) (at ``stride``, over the lists ``ids`` when given)
+    and of its plain version, device ms of K5 (b), and its bound; with
+    ``library``, also of ``torch._int_mm`` of the product alone ([R, 128] @
+    [128, slots]: the slots the call reads, gathered into a contiguous copy
+    here, for one group when listed; no mask, no max), which the port never
+    calls."""
     from slideo_tpu_torch.ops import cuda_screen
 
-    fns = {"kernel": lambda: cuda_screen.screen_scores(query, di.desc, di.valid, n_slides, k)}
+    bits = cuda_screen.SCREEN_BITS
+    fns = {"kernel": lambda: cuda_screen.screen_scores(query, di.desc, di.valid, n_slides, k,
+                                                       stride, ids)}
     if plain:
-        fns["plain"] = lambda: cuda_screen.screen_scores_plain(query, di.desc, di.valid, n_slides, k)
+        fns["plain"] = lambda: cuda_screen.screen_scores_plain(query, di.desc, di.valid, n_slides,
+                                                               k, stride, ids)
     if library:
-        pre_t = di.desc[:, :cuda_screen.SCREEN_BITS].contiguous().T
+        check(ids is None or ids.shape[0] == 1, "the library product takes one group's lists")
+        d3 = di.desc.view(n_slides, k, -1)
+        sel = d3[:, ::stride] if ids is None else d3[ids[0].long(), ::stride]
+        pre_t = sel[..., :bits].reshape(-1, bits).contiguous().T
         fns["library"] = lambda: torch._int_mm(query, pre_t)
     ms = cuda_ms(fns, reps=5)
     dev = device_ms({n: f for n, f in fns.items() if n != "plain"}, ms, reps=5)
-    b = screen_bound(query.shape[0], n_slides, k)
+    n_cols, n_read = ((n_slides, n_slides) if ids is None
+                      else (ids.shape[1], torch.unique(ids).numel()))
+    b = screen_bound(query.shape[0], n_cols, k // stride, n_read)
     lib = (f"; torch._int_mm call {ms['library']:.4f} ms, device {dev['library']:.4f} ms"
            if library else "")
     pl = f"; plain {ms['plain']:.4f} ms" if plain else ""
     print(f"[time] screen_scores {label}: kernel call {ms['kernel']:.4f} ms, device "
           f"{dev['kernel']:.4f} ms{pl}{lib}; bound {b['bound_ms']:.4f} ms ({b['bound_by']}) ({smi})")
-    return ms, dev
+    return ms, dev, b
+
+
+def kernel_name(mangled: str) -> str:
+    """The innermost name of a mangled kernel (``_ZN<n>ns<n>name...``)."""
+    import re
+
+    i, name = 3 if mangled.startswith("_ZN") else 2, mangled
+    while (m := re.match(r"\d+", mangled[i:])):
+        n = int(m.group())
+        name, i = mangled[i + m.end():i + m.end() + n], i + m.end() + n
+    return name
 
 
 def compare_library(src: str, index: int, symbols: tuple, signatures: dict | None = None):
     """``src`` built alone into a library of its own with ``-Xptxas -v``
     (headers from csrc/), the C signatures of ``symbols`` bound (from
     ``signatures``, else ``_kernels._SIGNATURES``); returns the library,
-    ptxas's resource lines and the counts of the SASS opcodes from
-    ``cuobjdump -sass``: by name (before the first dot) and, for an opcode
-    with modifiers, also in full (``LDS.U.128``)."""
+    ptxas's resource lines (each kernel's name, then its lines) and the
+    counts of the SASS opcodes from ``cuobjdump -sass``: by name (before
+    the first dot) and, for an opcode with modifiers, also in full
+    (``LDS.U.128``), and each kernel's instructions under
+    ``"kernel.NAME"``."""
     import collections
     import ctypes
     import re
@@ -1012,15 +1091,25 @@ def compare_library(src: str, index: int, symbols: tuple, signatures: dict | Non
                            "-Xptxas", "-v", "-shared", "-o", str(so), src],
                           capture_output=True, text=True)
     check(proc.returncode == 0, f"nvcc failed on {src}:\n{proc.stderr}")
-    resources = [line.strip() for line in proc.stderr.splitlines()
-                 if "registers" in line or "spill" in line]
+    resources = []
+    for line in proc.stderr.splitlines():
+        entry = re.search(r"entry function '(\w+)'", line)
+        if entry:
+            resources.append(kernel_name(entry.group(1)))
+        elif "registers" in line or "spill" in line:
+            resources.append(line.strip())
     sass = subprocess.run([str(Path(_kernels._nvcc()).parent / "cuobjdump"), "-sass", str(so)],
                           capture_output=True, text=True, check=True).stdout
     ops = collections.Counter()
-    for op in re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)", sass):
-        ops[op.split(".")[0]] += 1
-        if "." in op:
-            ops[op] += 1
+    for part in re.split(r"Function : (\w+)", sass)[1:]:
+        if re.fullmatch(r"\w+", part):
+            kernel = f"kernel.{kernel_name(part)}"
+            continue
+        for op in re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)", part):
+            ops[op.split(".")[0]] += 1
+            ops[kernel] += 1
+            if "." in op:
+                ops[op] += 1
     lib = ctypes.CDLL(str(so))
     for name in symbols:
         getattr(lib, name).argtypes = (signatures or _kernels._SIGNATURES)[name]
@@ -1028,25 +1117,55 @@ def compare_library(src: str, index: int, symbols: tuple, signatures: dict | Non
     return lib, resources, ops
 
 
+# C signature of slideo_screen before its strided and listed forms: query,
+# nq, desc, valid, n_slides, k_per_slide, best, stream.
+SINGLE_SCREEN_SIGNATURE = ("p", "i", "p", "p", "i", "i", "p", "p")
+
+
+def single_screen_library(lib):
+    """A library whose ``slideo_screen`` takes ``SINGLE_SCREEN_SIGNATURE``,
+    behind the current signature, for single-stage calls only."""
+    import types
+
+    def slideo_screen(query, nq, desc, valid, k, stride, ids, n_cols, rows_per_group, best, stream):
+        check(stride == 1 and ids is None and rows_per_group == nq,
+              "a single-stage screen.cu takes no stride, row groups or slide lists")
+        return lib.slideo_screen(query, nq, desc, valid, n_cols, k, best, stream)
+
+    return types.SimpleNamespace(slideo_screen=slideo_screen)
+
+
 def phase_compare_screen(torch, sources: list[str], seed: int, smi: str) -> None:
     """Versions of csrc/screen.cu side by side: each source (exporting
-    ``slideo_screen`` with its C signature) is built into a library of its
-    own; ptxas's registers, spills and shared memory and the SASS counts of
-    IMMA, IDP (dp4a), LDSM, LDGSTS and LDS are printed. On a random +-1
-    index of the phase-5 shape (500 slides x 2048 slots, 10% of slots and
-    slide 7 invalid) and 64 frames' worth of random prefixes (every 7th row
-    zero), each version is held bit-equal on every case of
-    ``screen_cases`` and timed at 64 frames and one frame, in turns,
-    forwards then backwards."""
-    from slideo_tpu_torch import _kernels
+    ``slideo_screen`` in the current C signature, or in the earlier
+    single-stage one, ``SINGLE_SCREEN_SIGNATURE``, called through
+    ``single_screen_library``) is built into a library of its own; ptxas's
+    registers, spills and shared memory and the SASS counts of IMMA, IDP
+    (dp4a), LDSM, LDGSTS and LDS are printed. On a random +-1 index of the
+    phase-5 shape (500 slides x 2048 slots, 10% of slots and slide 7
+    invalid) and 64 frames' worth of random prefixes (every 7th row zero),
+    each version is held bit-equal on every case of ``screen_cases`` it
+    takes (a single-stage source: those of the single stage) and timed at
+    64 frames and one frame (and, where it takes them, at the strided and
+    listed 64-frame cases), in turns, forwards then backwards."""
+    import ctypes
+
+    from slideo_tpu_torch import DEFAULT_CONFIG, _kernels
     from slideo_tpu_torch.ops import hamming
 
+    ctype = {"p": ctypes.c_void_p, "i": ctypes.c_int}
     libs = {}
     for src in sources:
-        lib, resources, ops = compare_library(src, len(libs), ("slideo_screen",))
-        print(f"[compare] {src}: {resources}; {sum(n for op, n in ops.items() if '.' not in op)} SASS instructions, " + ", ".join(
-            f"{op} {ops[op]}" for op in ("IMMA", "IDP", "LDSM", "LDGSTS", "LDS")))
-        libs[src] = lib
+        single = "const void* slide_ids" not in Path(src).read_text()
+        sig = ({"slideo_screen": tuple(ctype[c] for c in SINGLE_SCREEN_SIGNATURE)} if single
+               else None)
+        lib, resources, ops = compare_library(src, len(libs), ("slideo_screen",), sig)
+        by_kernel = ", ".join(f"{op[7:]} {n}" for op, n in ops.items() if op.startswith("kernel."))
+        print(f"[compare] {src}{' (single-stage signature)' if single else ''}: {resources}; "
+              f"{sum(n for op, n in ops.items() if '.' not in op)} SASS instructions "
+              f"({by_kernel}), "
+              + ", ".join(f"{op} {ops[op]}" for op in ("IMMA", "IDP", "LDSM", "LDGSTS", "LDS")))
+        libs[src] = (single_screen_library(lib) if single else lib, single)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     pm1 = lambda *shape: (torch.randint(0, 2, shape, generator=gen, device=dev,  # noqa: E731
@@ -1057,21 +1176,27 @@ def phase_compare_screen(torch, sources: list[str], seed: int, smi: str) -> None
     di = hamming.build_index(pm1(n_slides, k, 256), valid)
     prefixes = pm1(64 * 256, 128)
     prefixes[::7] = 0
-    cases = screen_cases(torch, prefixes, 256, di, n_slides, k)
-    times = {src: {"64 frames": [], "one frame": []} for src in sources}
-    for turn, names in enumerate((sources, sources[::-1])):
-        for src in names:
-            _kernels._lib = libs[src]
-            print(f"[compare] {src}, turn {turn}")
-            check_screen(torch, cases, src)
-            for label, query in (("64 frames", prefixes), ("one frame", prefixes[:256])):
-                _, dev_ms = time_screen(torch, f"{src} {label}", query, di, n_slides, k, smi,
-                                        plain=False)
-                times[src][label].append(dev_ms["kernel"])
+    cases = screen_cases(torch, prefixes, 256, di, n_slides, k, DEFAULT_CONFIG.match)
+    by_label = {c[0]: c for c in cases}
+    timed = ("64 frames", "one frame", "strided 64 frames", "listed 64 frames")
+    times = {src: {label: [] for label in timed} for src in sources}
+    try:
+        for turn, names in enumerate((sources, sources[::-1])):
+            for src in names:
+                _kernels._lib, single = libs[src]
+                print(f"[compare] {src}, turn {turn}")
+                check_screen(torch, cases, src, single_only=single)
+                for label in timed[:2] if single else timed:
+                    _, query, di_, n_s, k_, stride, ids, _ = by_label[label]
+                    _, dev_ms, _ = time_screen(torch, f"{src} {label}", query, di_, n_s, k_, smi,
+                                               plain=False, stride=stride, ids=ids)
+                    times[src][label].append(dev_ms["kernel"])
+    finally:
+        _kernels._lib = None
     for src in sources:
         print(f"[compare] {src}: device ms " + "; ".join(
-            f"{label} {min(t):.4f}-{max(t):.4f}" for label, t in times[src].items()) + f" ({smi})")
-    _kernels._lib = None
+            f"{label} {min(t):.4f}-{max(t):.4f}" for label, t in times[src].items() if t)
+            + f" ({smi})")
 
 
 def phase_profiler_check(torch, smi: str) -> None:
@@ -1187,7 +1312,8 @@ def drive_engine(torch, cfg, deck: np.ndarray, runs, seed: int, smi: str, tag: s
     that every changed frame got its run's page: dedup may merge runs of
     near-duplicate slides in the timeline). Returns the launches, the
     frame -> page rows of every matched frame (the engine's checkpoint
-    rows), the sampled frames by index, the timeline rows and the engine."""
+    rows), the sampled frames by index, the timeline rows, the engine and
+    the sampled frames per second."""
     from slideo_tpu_torch import _kernels
     from slideo_tpu_torch.app.db import Db
     from slideo_tpu_torch.app.pipeline import MatchingEngine, PdfPage
@@ -1266,7 +1392,7 @@ def drive_engine(torch, cfg, deck: np.ndarray, runs, seed: int, smi: str, tag: s
               "matched to another page")
     check(rows[-1][1] is None and rows[-1][0] == total_ms, f"{tag}: the sentinel row is not last")
     return dict(launches=launches, matched=matched, frames={i: f for i, _, f in samples},
-                timeline=got, engine=engine)
+                timeline=got, engine=engine, fps=len(samples) / t_match)
 
 
 def make_reveal_deck(rng: np.random.RandomState, n_pages: int = SCREENED_PAGES) -> np.ndarray:
@@ -1304,10 +1430,11 @@ def make_screened_stream(rng: np.random.RandomState, deck: np.ndarray, n_familie
     return runs
 
 
-def phase_screened(torch, seed: int, smi: str) -> tuple[dict, dict, dict]:
-    """The screened path on a 500-slide deck; returns K5 (b)'s kernel row,
-    the screened run's launches and the exact run (``drive_engine``'s
-    result)."""
+def phase_screened(torch, seed: int, smi: str) -> tuple[list, list, dict]:
+    """The screened path on a 500-slide deck, with and without the
+    pre-vote; returns K5 (b)'s kernel rows (single stage, strided, listed),
+    the launches of the screened and the pre-vote runs, and the exact run
+    (``drive_engine``'s result)."""
     import dataclasses
 
     from slideo_tpu_torch import DEFAULT_CONFIG
@@ -1327,6 +1454,8 @@ def phase_screened(torch, seed: int, smi: str) -> tuple[dict, dict, dict]:
     screened = drive_engine(torch, cfg, deck, runs, seed, smi, "screened")
     for name in ("screen", "table", "fast", "orb", "warp"):
         check(screened["launches"][name] > 0, f"kernel {name} was never launched by the screened run")
+    check(screened["launches"]["screen_strided"] == screened["launches"]["screen_listed"] == 0,
+          "the single-stage screened run went through the pre-vote")
 
     # (d): the same frames with screening off (the exact table over 500 slides).
     exact_cfg = dataclasses.replace(
@@ -1340,7 +1469,27 @@ def phase_screened(torch, seed: int, smi: str) -> tuple[dict, dict, dict]:
     check(len(screened["matched"]) == len(exact["matched"]) and not diffs,
           "screened and exact assignments differ")
 
-    # (a): K5 (b) on 64 frames' stacked query prefixes against the index.
+    # (f): the same frames with the strided pre-vote on (stage 1a strided,
+    # stage 1b listed; the single stage must not run).
+    pv_cfg = dataclasses.replace(cfg, match=dataclasses.replace(cfg.match, screen_prevote=True))
+    prevote = drive_engine(torch, pv_cfg, deck, runs, seed, smi, "prevote")
+    for name in ("screen_strided", "screen_listed", "table"):
+        check(prevote["launches"][name] > 0,
+              f"kernel {name} was never launched by the pre-vote run")
+    check(prevote["launches"]["screen"] == 0, "the pre-vote run went through the single stage")
+    diffs = [(a, b) for a, b in zip(prevote["matched"], exact["matched"]) if a != b]
+    print(f"[prevote] pre-vote vs exact assignments: {len(prevote['matched'])} frames, "
+          f"{len(diffs)} differences {diffs}; frames/s pre-vote on {prevote['fps']:.2f}, off "
+          f"{screened['fps']:.2f} ({smi})")
+    check(len(prevote["matched"]) == len(exact["matched"]) and not diffs,
+          "pre-vote and exact assignments differ")
+    prevote_launches = prevote["launches"]
+    del prevote
+
+    # (a): K5 (b) in its three forms on 64 frames' stacked query prefixes
+    # against the index (every case of ``screen_cases`` checked, then
+    # timed), and the pre-vote's candidates of those 64 frames: the kernels'
+    # against the plain versions'.
     dev = torch.device("cuda")
     index = screened["engine"].index
     di = index.desc_index
@@ -1353,20 +1502,51 @@ def phase_screened(torch, seed: int, smi: str) -> tuple[dict, dict, dict]:
     prefixes = qdesc[..., :cuda_screen.SCREEN_BITS].reshape(-1, cuda_screen.SCREEN_BITS).contiguous()
     print(f"[K5b] prefixes {tuple(prefixes.shape)} x index {n_slides}x{kps_per}")
     per_frame = cfg.match.screen_queries
-    errs = check_screen(torch, screen_cases(torch, prefixes, per_frame, di, n_slides, kps_per),
-                        "csrc/screen.cu")
-    ms, dev_ms = time_screen(torch, f"{prefixes.shape[0]} queries", prefixes, di, n_slides,
-                             kps_per, smi)
-    one, one_dev = time_screen(torch, "one frame", prefixes[:per_frame], di, n_slides, kps_per,
-                               smi, library=True)
-    row = kernel_row(
-        "screen_scores", "screen.cu", "slideo_tpu/ops/pallas_table.py:143", max(errs.values()),
-        ms, dev_ms, screen_bound(prefixes.shape[0], n_slides, kps_per),
-        one_frame=dict(max_abs_err=errs["one frame"], ms=one["kernel"], device_ms=one_dev["kernel"],
-                       plain_ms=one["plain"], **screen_bound(per_frame, n_slides, kps_per),
-                       library_ms=one["library"], library_device_ms=one_dev["library"]),
-    )
-    print_row(row, smi)
+    cases = screen_cases(torch, prefixes, per_frame, di, n_slides, kps_per, pv_cfg.match)
+    errs = check_screen(torch, cases, "csrc/screen.cu")
+    pv_cand = hamming.screen_slides_batched(qdesc, di, n_slides, kps_per, pv_cfg.match)
+    hamming.screen_scores = cuda_screen.screen_scores_plain
+    try:
+        plain_cand = hamming.screen_slides_batched(qdesc, di, n_slides, kps_per, pv_cfg.match)
+    finally:
+        hamming.screen_scores = cuda_screen.screen_scores
+    same = torch.equal(pv_cand, plain_cand)
+    print(f"[prevote] candidates {tuple(pv_cand.shape)} of {len(frames)} frames: kernels == plain "
+          f"versions {same}")
+    check(same, "the pre-vote's candidates differ from those of the plain versions")
+    forms = ("", "strided ", "listed ")
+    row_cases = {f"{form}{n}" for form in forms for n in (f"{len(frames)} frames", "one frame")}
+    for label, query, di_, n_s, k_, stride, ids, _ in cases:
+        if label not in row_cases:   # the kernel rows below time these
+            time_screen(torch, label, query, di_, n_s, k_, smi, plain=False, stride=stride,
+                        ids=ids)
+
+    by_label = {c[0]: c for c in cases}
+    form_of = {c[0]: "listed " if c[6] is not None else "strided " if c[5] != 1 else ""
+               for c in cases}
+
+    def k5b_row(name: str, replaces: str, form: str) -> dict:
+        """The kernel row of one form (its 64-frame case, and its one-frame
+        case beside the library product); max_abs_err over the form's
+        cases."""
+        many, one = by_label[f"{form}{len(frames)} frames"], by_label[f"{form}one frame"]
+        ms, dev_ms, cost = time_screen(torch, many[0], *many[1:5], smi, stride=many[5],
+                                       ids=many[6])
+        o_ms, o_dev, o_cost = time_screen(torch, one[0], *one[1:5], smi, library=True,
+                                          stride=one[5], ids=one[6])
+        return kernel_row(
+            name, "screen.cu", replaces, max(e for lb, e in errs.items() if form_of[lb] == form),
+            ms, dev_ms, cost,
+            one_frame=dict(max_abs_err=errs[one[0]], ms=o_ms["kernel"], device_ms=o_dev["kernel"],
+                           plain_ms=o_ms["plain"], **o_cost, library_ms=o_ms["library"],
+                           library_device_ms=o_dev["library"]),
+        )
+
+    rows = [k5b_row("screen_scores", "slideo_tpu/ops/pallas_table.py:143", ""),
+            k5b_row("screen_prevote_strided", "slideo_tpu/ops/hamming.py:564", "strided "),
+            k5b_row("screen_prevote_listed", "slideo_tpu/ops/hamming.py:584", "listed ")]
+    for r in rows:
+        print_row(r, smi)
 
     # (b): K5 (a) over the first frame's candidate slides (stage 2), both
     # query buckets, and at Q=2048 over all 500 slides (the exact run's table).
@@ -1381,7 +1561,7 @@ def phase_screened(torch, seed: int, smi: str) -> tuple[dict, dict, dict]:
         time_table(torch, label, query, di, n_slides, kps_per, cand, smi)
     check_table(torch, f"Q={q} x {n_slides} slides", query, di, n_slides, kps_per)
     time_table(torch, f"Q={q} x {n_slides} slides", query, di, n_slides, kps_per, None, smi)
-    return row, screened["launches"], exact
+    return rows, [screened["launches"], prevote_launches], exact
 
 
 def mesh_devices(torch) -> list:
@@ -1699,22 +1879,23 @@ def main() -> None:
           f"{time.perf_counter() - t0:.2f} s (host)")
     rows = phase_kernels(torch, deck, runs[0][1][0], args.seed, smi)
     slice_out = phase_slice(torch, deck, runs, args.seed, smi)
-    screen_row, screened_launches, exact = phase_screened(torch, args.seed, smi)
+    screen_rows, screened_launches, exact = phase_screened(torch, args.seed, smi)
     shard_row, dp_launches, ip_launches = phase_mesh(
         torch, deck, runs, args.seed, smi, slice_out, exact)
     del exact
     k2_row, profile_launches = phase_fast_batch(torch, deck, runs, args.seed, smi)
     sift_launches = phase_sift(torch, deck, args.seed, smi)
-    rows += [screen_row, shard_row, k2_row]
+    rows += [*screen_rows, shard_row, k2_row]
     # Each kernel's launches over every path of this run; the table
     # launches of the index-parallel step are K5 (c)'s.
-    paths = [slice_out["launches"], screened_launches, dp_launches, ip_launches, profile_launches,
+    paths = [slice_out["launches"], *screened_launches, dp_launches, ip_launches, profile_launches,
              *sift_launches]
     counted = {name: sum(p[name] for p in paths) for name in paths[0]}
     counted["table"] -= ip_launches["table"]
     by_name = {"fast_nms": "fast", "orb_describe": "orb", "match_table": "table",
                "warp_sample": "warp", "screen_scores": "screen", "fast_nms_batch": "fast_batch",
-               "warp_sample_homography": "warp_homography"}
+               "warp_sample_homography": "warp_homography",
+               "screen_prevote_strided": "screen_strided", "screen_prevote_listed": "screen_listed"}
     for r in rows:
         r["launches"] = (ip_launches["table"] if r["name"] == "match_table_shard"
                          else counted[by_name[r["name"]]])

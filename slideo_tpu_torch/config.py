@@ -16,9 +16,13 @@ kernels (``fast_polarity_fused``, ``fast_chunk_w``, ``fast_sparse_skip``,
 ``knn_chunk``) are kept for the equal field set; the port reads none of
 them (no ``fast_sparse_skip``: kernel K1's compass pretest is exact and
 always runs). Options the port does not run raise ``NotImplementedError``
-where they are read: ``screen_prevote``, ``screen_bits`` other than 128,
+where they are read: ``screen_bits`` other than 128,
 ``screen_k_per_slide`` below the deck's keypoints per slide on the per-frame
-screened path, and the "chunk" and "seek" decode modes.
+screened path, and the "chunk" and "seek" decode modes. ``MatchConfig``
+refuses ``screen_prevote`` with more ``screen_slides`` than
+``screen_prevote_slides`` (a ``ValueError``): the re-vote cannot return
+more candidates than the pre-vote kept, and the JAX package fails there
+inside its trace (``slideo_tpu/ops/hamming.py:589-590``).
 """
 
 from __future__ import annotations
@@ -102,12 +106,23 @@ class MatchConfig:
     screen_bits: int = 128          # descriptor prefix bits of the stage-1 vote
     screen_queries: int = 256       # strongest frame keypoints used for screening
     screen_k_per_slide: int = 2048  # index slots per slide the vote reads (full K)
-    # Strided pre-vote before the full-K vote (off by default; not ported).
+    # Strided pre-vote before the full-K vote (off by default): the
+    # strongest screen_prevote_queries prefixes vote over every
+    # screen_prevote_k_stride-th slot and keep screen_prevote_slides slides,
+    # then the full-K vote runs over those slides only.
     screen_prevote: bool = False
     screen_prevote_slides: int = 64
     screen_prevote_k_stride: int = 4
     screen_prevote_queries: int = 128
     knn_chunk: int = 65536
+
+    def __post_init__(self) -> None:
+        if self.screen_prevote and self.screen_slides > self.screen_prevote_slides:
+            raise ValueError(
+                f"screen_prevote=True with screen_slides={self.screen_slides} > "
+                f"screen_prevote_slides={self.screen_prevote_slides}: the re-vote keeps at "
+                "most the pre-vote's slides"
+            )
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,21 +2,30 @@
 // of every (query, slide), on the int8 tensor cores.
 //
 // Replaces slideo_tpu/ops/pallas_table.py:match_table_scores_pallas in its
-// int8 / transposed / max-only / skip_bias mode, as
-// slideo_tpu/ops/hamming.py:screen_slides_batched calls it. Contract,
-// bit-equal to that call on the index's screening tensor:
-//   score[r, s, k] = valid[s*K + k] ? <query[r, :128], desc[s*K + k, :128]> : -254
-//   best[r, s]     = max_k score   (int32, exact)
+// int8 / transposed / max-only / skip_bias mode, at the three call sites of
+// slideo_tpu/ops/hamming.py:screen_slides_batched: the single-stage sweep
+// (:595), the strided pre-vote (:564) and the re-vote over each frame's own
+// slide list (:584). Contract, bit-equal to those calls on the index's
+// screening tensor (and to the gathered sub-tensors of :572-586):
+//   slide(g, c)       = slide_ids ? slide_ids[g, c] : c
+//   score[r, c, j]    = valid[s*K + j*stride] ? <query[r, :128], desc[s*K + j*stride, :128]> : -254
+//                       with s = slide(r / rows_per_group, c), j < K / stride
+//   best[r, c]        = max_j score   (int32, exact)
+// One group (rows_per_group = R), stride 1 and no list is the single stage;
+// stride 4 over every slide is the pre-vote; groups of a frame's rows, each
+// against its own P listed slides, is the re-vote.
 // The TPU kernel reads a second copy of the index, screen_desc [S, 160, K]:
 // the 128 prefix rows plus two -127 validity rows that meet two +1 query
-// columns, so an invalid slot scores exactly -254 inside the contraction.
-// This kernel reads the prefix in place instead: the first 128 bytes of each
-// 256-byte row of the port's row-major desc [S*K, 256], and valid [S*K]. A
-// dot lies in [-128, 128], so a slide with a valid slot has its best among
-// the valid slots and one with none scores -254: the running max takes
-// valid slots only, and a max that took none is written as -254. Invalid
-// query rows are all zero and score 0 against every valid slot, as on the
-// TPU (int8 keeps them exact; packed bits would not).
+// columns, so an invalid slot scores exactly -254 inside the contraction;
+// the pre-vote slices its slot axis with a stride and the re-vote gathers
+// each frame's P slides into a copy. This kernel reads the prefix in place
+// instead: the first 128 bytes of each 256-byte row of the port's
+// row-major desc [S*K, 256], and valid [S*K], at the rows a column names,
+// with no copy. A dot lies in [-128, 128], so a slide with a valid slot has
+// its best among the valid slots and one with none scores -254: the running
+// max takes valid slots only, and a max that took none is written as -254.
+// Invalid query rows are all zero and score 0 against every valid slot, as
+// on the TPU (int8 keeps them exact; packed bits would not).
 //
 // What bounds it on the card: 2*R*S*K*128 int8 operations (4.3 T at
 // R = 64 frames x 256 queries, S = 500, K = 2048: 2.17 ms at 1,979 TOP/s)
@@ -28,9 +37,10 @@
 // 16,384; 33 GB at the earlier 64-query tile). (2) Shared-memory reads: a
 // B fragment read by ldmatrix feeds as many mma as the warp holds query
 // tiles of 16 rows.
-// Design: one block of 4 warps per (256-query tile, slide), query tiles
+// Design: one block of 4 warps per (256-query tile, column), query tiles
 // fastest in launch order, so the blocks of one slide run together and its
-// prefixes come from device memory once. One frame (R = 256) is one tile
+// prefixes come from device memory once (a column is a slide, or in the
+// listed form the slide that the tile's group lists there). One frame (R = 256) is one tile
 // and gives 500 blocks. Each warp holds 64 query rows, the most that fit,
 // as A fragments of mma.sync m16n8k32 s8 in registers (4 m-tiles x 4
 // k-steps x 4 = 64 registers, loaded once from global memory), so each
@@ -51,6 +61,24 @@
 // measured no faster: 5.07-5.10 device ms against this tile's 4.98-4.99 at
 // R = 16,384 (chip_smoke.py --compare-screen, NVIDIA H100 80GB HBM3,
 // 700.00 W), so the L2 traffic does not bind at this tile.
+// The pre-vote and the re-vote run the same body (screen_body<true>) in a
+// kernel of their own, which reads the stride, the row groups and the
+// slide list; the single stage's kernel has them as constants and keeps
+// its 1,344 SASS instructions and 128 registers (PERF.md gives its time
+// beside that of the kernel before these forms). Strided: the ring
+// copies rows s*K + j*stride (128 of every stride * 256 bytes) and the
+// ballots read validity at the same rows; slots past K / stride count as
+// invalid. Listed: a block's query tile lies inside one group (tiles are
+// counted per group, ceil(rows_per_group / 256), and rows past the
+// group's end are zero and not written), so a frame's rows never meet
+// another frame's slides; its column names the slide through slide_ids,
+// as table.cu's slide list does.
+// The pre-vote at R = 64 x 128, stride 4 does 2*R*S*(K/4)*128 = 5.4e11
+// operations (0.27 ms); the re-vote at 64 groups of 256 x 64 listed slides
+// does 5.5e11 (0.28 ms), its floor: the function needs each distinct slide
+// the lists name once (at most 500 x 2048 rows, 132 MB, 0.04 ms), though
+// this kernel reads each group's 64 x 2048 rows on its own (1.08 GB from
+// L2 or memory; the 131 MB of prefixes do not fit in L2).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,29 +104,43 @@ constexpr int INVALID = -254;          // two -127 validity rows x two +1 column
 constexpr int kIntMin = -2147483647 - 1;
 static_assert(NT * CHUNKS % THREADS == 0, "a tile is whole copies of every thread");
 
-// Bit 0: slot k0 + 2 * lane is valid; bit 1: slot k0 + 2 * lane + 1. Slots
-// past the slide's end are not.
+// Bit 0: slot k0 + 2 * lane is valid; bit 1: slot k0 + 2 * lane + 1. Slot j
+// is row j * step of the slide; slots past n_slots are not valid.
 __device__ __forceinline__ int lane_valid(const uint8_t* __restrict__ vslide, int k0, int lane,
-                                          int k_per_slide) {
+                                          int n_slots, int step) {
   const int k = k0 + 2 * lane;
   int v = 0;
-  if (k < k_per_slide && __ldg(vslide + k) != 0) v = 1;
-  if (k + 1 < k_per_slide && __ldg(vslide + k + 1) != 0) v |= 2;
+  if (k < n_slots && __ldg(vslide + (int64_t)k * step) != 0) v = 1;
+  if (k + 1 < n_slots && __ldg(vslide + (int64_t)(k + 1) * step) != 0) v |= 2;
   return v;
 }
 
-__global__ void __launch_bounds__(THREADS)
-screen_kernel(const int8_t* __restrict__ query, int nq, const int8_t* __restrict__ desc,
-              const uint8_t* __restrict__ valid, int n_slides, int k_per_slide,
-              int* __restrict__ best_out) {
+// The kernel body. kGeneral false: the single stage (stride 1, one group of
+// nq rows, column = slide); the other arguments are not read.
+template <bool kGeneral>
+__device__ __forceinline__ void screen_body(
+    const int8_t* __restrict__ query, int nq, const int8_t* __restrict__ desc,
+    const uint8_t* __restrict__ valid, int k_per_slide, int stride,
+    const int* __restrict__ slide_ids, int n_cols, int rows_per_group, int tiles_per_group,
+    int* __restrict__ best_out) {
   __shared__ __align__(128) uint8_t ring[STAGES][NT][LDS];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;   // mma fragment coordinates
-  const int slide = blockIdx.y;
+  const int col = blockIdx.y;
+  int group = 0, qtile = blockIdx.x, n_rows = nq, step = 1, n_slots = k_per_slide, slide = col;
+  if constexpr (kGeneral) {
+    group = blockIdx.x / tiles_per_group;
+    qtile = blockIdx.x - group * tiles_per_group;
+    n_rows = rows_per_group;
+    step = stride;
+    n_slots = k_per_slide / stride;
+    if (slide_ids != nullptr) slide = __ldg(slide_ids + (int64_t)group * n_cols + col);
+  }
   const int64_t row0 = (int64_t)slide * k_per_slide;
   const int8_t* dslide = desc + row0 * ROW;
   const uint8_t* vslide = valid + row0;
-  const int n_tiles = (k_per_slide + NT - 1) / NT;
+  const int n_tiles = (n_slots + NT - 1) / NT;
+  const int64_t grow0 = (int64_t)group * n_rows;   // the group's first query row
 
   auto load_tile = [&](int tile, int stage) {
     const int k0 = tile * NT;
@@ -106,9 +148,9 @@ screen_kernel(const int8_t* __restrict__ query, int nq, const int8_t* __restrict
     for (int u = 0; u < NT * CHUNKS / THREADS; ++u) {
       const int i = tid + u * THREADS;
       const int r = i / CHUNKS, c = i % CHUNKS;
-      const bool in = k0 + r < k_per_slide;
+      const bool in = k0 + r < n_slots;
       cp_async16(smem_addr(&ring[stage][r][c * 16]),
-                 dslide + (int64_t)(in ? k0 + r : 0) * ROW + c * 16, in);
+                 dslide + (int64_t)(in ? k0 + r : 0) * step * ROW + c * 16, in);
     }
   };
 #pragma unroll
@@ -117,21 +159,22 @@ screen_kernel(const int8_t* __restrict__ query, int nq, const int8_t* __restrict
     cp_async_commit();
   }
 
-  // A fragments of rows qw + 16m + 8h + g: register h holds bytes 4t..4t+3
-  // of a k-step, register 2 + h bytes 16 + 4t..; rows past nq are zero.
-  const int qw = blockIdx.x * QT + warp * WARP_ROWS;
+  // A fragments of the group's rows qw + 16m + 8h + g: register h holds
+  // bytes 4t..4t+3 of a k-step, register 2 + h bytes 16 + 4t..; rows past
+  // the group's end are zero.
+  const int qw = qtile * QT + warp * WARP_ROWS;
   uint32_t a[MT][KSTEPS][4];
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int q = qw + 16 * m + 8 * h + g;
-      const uint32_t* src =
-          reinterpret_cast<const uint32_t*>(query + (int64_t)min(q, nq - 1) * PREFIX) + t;
+      const uint32_t* src = reinterpret_cast<const uint32_t*>(
+                                query + (grow0 + min(q, n_rows - 1)) * PREFIX) + t;
 #pragma unroll
       for (int ks = 0; ks < KSTEPS; ++ks) {
-        a[m][ks][h] = q < nq ? __ldg(src + 8 * ks) : 0u;
-        a[m][ks][2 + h] = q < nq ? __ldg(src + 8 * ks + 4) : 0u;
+        a[m][ks][h] = q < n_rows ? __ldg(src + 8 * ks) : 0u;
+        a[m][ks][2 + h] = q < n_rows ? __ldg(src + 8 * ks + 4) : 0u;
       }
     }
 
@@ -140,7 +183,7 @@ screen_kernel(const int8_t* __restrict__ query, int nq, const int8_t* __restrict
 #pragma unroll
   for (int m = 0; m < MT; ++m) best[m][0] = best[m][1] = kIntMin;
 
-  int vnext = lane_valid(vslide, 0, lane, k_per_slide);
+  int vnext = lane_valid(vslide, 0, lane, n_slots, step);
   for (int tile = 0; tile < n_tiles; ++tile) {
     cp_async_wait<STAGES - 2>();   // this tile has landed ...
     __syncthreads();               // ... and every warp is done with tile - 1
@@ -150,7 +193,7 @@ screen_kernel(const int8_t* __restrict__ query, int nq, const int8_t* __restrict
     // Bit 4n of `even` (`odd`): validity of this lane's slot 8n + 2t (+ 1).
     const uint32_t even = __ballot_sync(0xffffffffu, vnext & 1) >> t;
     const uint32_t odd = __ballot_sync(0xffffffffu, vnext & 2) >> t;
-    if (tile + 1 < n_tiles) vnext = lane_valid(vslide, (tile + 1) * NT, lane, k_per_slide);
+    if (tile + 1 < n_tiles) vnext = lane_valid(vslide, (tile + 1) * NT, lane, n_slots, step);
 
     const uint8_t* st = &ring[tile % STAGES][0][0];
 #pragma unroll
@@ -202,21 +245,56 @@ screen_kernel(const int8_t* __restrict__ query, int nq, const int8_t* __restrict
       v = max(v, __shfl_xor_sync(0xffffffffu, v, 1));
       v = max(v, __shfl_xor_sync(0xffffffffu, v, 2));
       const int q = qw + 16 * m + 8 * h + g;
-      if (t == 0 && q < nq) best_out[(int64_t)q * n_slides + slide] = v == kIntMin ? INVALID : v;
+      if (t == 0 && q < n_rows)
+        best_out[(grow0 + q) * n_cols + col] = v == kIntMin ? INVALID : v;
     }
+}
+
+// The single stage, with the parameters of the kernel before the strided
+// and listed forms: ptxas gives it 128 registers and no spill.
+__global__ void __launch_bounds__(THREADS)
+screen_kernel(const int8_t* __restrict__ query, int nq, const int8_t* __restrict__ desc,
+              const uint8_t* __restrict__ valid, int n_slides, int k_per_slide,
+              int* __restrict__ best_out) {
+  screen_body<false>(query, nq, desc, valid, k_per_slide, 1, nullptr, n_slides, nq, 0, best_out);
+}
+
+// The strided and listed forms. Left free, ptxas gives this body 178
+// registers (2 blocks an SM); held to 4 blocks an SM it spills 72 bytes and
+// runs 10-13% faster (0.750-0.762 device ms against 0.828-0.869 at R = 64 x
+// 128 strided and 64 groups x 256 listed; 3 blocks an SM: 0.760-0.766;
+// chip_smoke.py --compare-screen, NVIDIA H100 80GB HBM3, 700.00 W).
+__global__ void __launch_bounds__(THREADS, 4)
+screen_general_kernel(const int8_t* __restrict__ query, int nq, const int8_t* __restrict__ desc,
+                      const uint8_t* __restrict__ valid, int k_per_slide, int stride,
+                      const int* __restrict__ slide_ids, int n_cols, int rows_per_group,
+                      int tiles_per_group, int* __restrict__ best_out) {
+  screen_body<true>(query, nq, desc, valid, k_per_slide, stride, slide_ids, n_cols,
+                    rows_per_group, tiles_per_group, best_out);
 }
 
 }  // namespace
 
 // query [nq, 128] int8; desc [n_slides * k_per_slide, 256] int8, both
-// 16-byte aligned; valid [n_slides * k_per_slide] uint8; best [nq, n_slides]
-// int32.
-extern "C" int slideo_screen(const void* query, int nq, const void* desc,
-                             const void* valid, int n_slides, int k_per_slide,
-                             void* best, void* stream) {
-  dim3 grid((nq + QT - 1) / QT, n_slides);
-  screen_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(query), nq, static_cast<const int8_t*>(desc),
-      static_cast<const uint8_t*>(valid), n_slides, k_per_slide, static_cast<int*>(best));
+// 16-byte aligned; valid [n_slides * k_per_slide] uint8; k_per_slide a
+// multiple of stride; slide_ids: [nq / rows_per_group, n_cols] int32 slide
+// ids, or null for columns 0..n_cols-1 (n_cols = n_slides) in every group;
+// nq a multiple of rows_per_group; best [nq, n_cols] int32.
+extern "C" int slideo_screen(const void* query, int nq, const void* desc, const void* valid,
+                             int k_per_slide, int stride, const void* slide_ids, int n_cols,
+                             int rows_per_group, void* best, void* stream) {
+  const auto q = static_cast<const int8_t*>(query);
+  const auto d = static_cast<const int8_t*>(desc);
+  const auto v = static_cast<const uint8_t*>(valid);
+  const auto out = static_cast<int*>(best);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int tiles = (rows_per_group + QT - 1) / QT;
+  const dim3 grid(tiles * (nq / rows_per_group), n_cols);
+  if (stride == 1 && slide_ids == nullptr && rows_per_group == nq)
+    screen_kernel<<<grid, THREADS, 0, st>>>(q, nq, d, v, n_cols, k_per_slide, out);
+  else
+    screen_general_kernel<<<grid, THREADS, 0, st>>>(q, nq, d, v, k_per_slide, stride,
+                                                    static_cast<const int*>(slide_ids), n_cols,
+                                                    rows_per_group, tiles, out);
   return static_cast<int>(cudaGetLastError());
 }

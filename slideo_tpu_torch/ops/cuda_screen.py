@@ -3,9 +3,12 @@
 Replaces ``slideo_tpu/ops/pallas_table.py:match_table_scores_pallas`` in the
 int8 / max-only / ``skip_bias`` mode that
 ``slideo_tpu/ops/hamming.py:screen_slides_batched`` runs on the screening
-tensor. A CUDA tensor launches the kernel; a CPU tensor takes the plain
-version, a float32 matmul per chunk of slides (exact for +-1 prefixes),
-masked to -254, then a max. Both are bit-equal to the TPU kernel.
+tensor, in its three forms: the single-stage sweep over every slot of every
+slide (``hamming.py:595``), the strided pre-vote over every ``stride``-th
+slot (``:564``) and the re-vote of each frame's rows over its own listed
+slides (``:584``). A CUDA tensor launches the kernel; a CPU tensor takes the
+plain version, a float32 matmul per chunk of slides (exact for +-1
+prefixes), masked to -254, then a max. Both are bit-equal to the TPU kernel.
 """
 
 from __future__ import annotations
@@ -22,39 +25,67 @@ _D_BITS = 256           # row length of the index desc the kernel reads
 _CHUNK_ELEMS = 1 << 28  # float32 scores per matmul of the plain version (1 GiB)
 
 
+def _best_of(qf: torch.Tensor, desc3: torch.Tensor, valid2: torch.Tensor) -> torch.Tensor:
+    """[R, C] float32 best of the float32 queries over the slots of each of
+    the C slides desc3 [C, n, 128] / valid2 [C, n], in chunks of slides."""
+    r = qf.shape[0]
+    n_cols, n = valid2.shape
+    chunk = max(1, _CHUNK_ELEMS // max(1, r * n))
+    best = [qf.new_empty((r, 0))]
+    for c0 in range(0, n_cols, chunk):
+        d = desc3[c0:c0 + chunk]
+        scores = qf @ d.to(torch.float32).reshape(-1, SCREEN_BITS).T
+        scores = torch.where(valid2[c0:c0 + chunk].reshape(1, -1), scores, float(_INVALID))
+        best.append(scores.reshape(r, d.shape[0], n).amax(dim=-1))
+    return torch.cat(best, dim=1)
+
+
 def screen_scores_plain(
     query: torch.Tensor, desc: torch.Tensor, valid: torch.Tensor,
-    n_slides: int, k_per_slide: int,
+    n_slides: int, k_per_slide: int, stride: int = 1,
+    slide_ids: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """best [R, S] int32: per (query, slide) the max over the slide's slots
-    of the 128-bit prefix dot product, an invalid slot scoring -254."""
-    r = query.shape[0]
+    """best [R, C] int32: per (query, column) the max over the column's
+    slide's slots j * ``stride`` (j < K / stride) of the 128-bit prefix dot
+    product, an invalid slot scoring -254. Without ``slide_ids`` the columns
+    are the S slides; with slide_ids [G, P] the query rows form G groups of
+    R / G and group g's column c is slide ``slide_ids[g, c]``."""
+    d3 = desc.reshape(n_slides, k_per_slide, -1)[:, ::stride, :SCREEN_BITS]
+    v2 = valid.reshape(n_slides, k_per_slide)[:, ::stride]
     qf = query.to(torch.float32)
-    chunk = max(1, _CHUNK_ELEMS // max(1, r * k_per_slide))
-    best = []
-    for s0 in range(0, n_slides, chunk):
-        s1 = min(s0 + chunk, n_slides)
-        rows = slice(s0 * k_per_slide, s1 * k_per_slide)
-        scores = qf @ desc[rows, :SCREEN_BITS].to(torch.float32).T
-        scores = torch.where(valid[rows][None, :], scores, float(_INVALID))
-        best.append(scores.reshape(r, s1 - s0, k_per_slide).amax(dim=-1))
-    if not best:
-        return torch.empty((r, 0), dtype=torch.int32, device=query.device)
-    return torch.cat(best, dim=1).to(torch.int32)
+    if slide_ids is None:
+        return _best_of(qf, d3, v2).to(torch.int32)
+    groups = qf.reshape(slide_ids.shape[0], -1, SCREEN_BITS)
+    best = [_best_of(q, d3[ids], v2[ids]) for q, ids in zip(groups, slide_ids.long())]
+    return torch.cat(best).to(torch.int32)
 
 
 def screen_scores(
     query: torch.Tensor, desc: torch.Tensor, valid: torch.Tensor,
-    n_slides: int, k_per_slide: int,
+    n_slides: int, k_per_slide: int, stride: int = 1,
+    slide_ids: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Stage-1 screening scores.
+    """Stage-1 screening scores (``screen_scores_plain``'s function).
 
     query [R, 128] int8 (+-1 prefixes, invalid rows 0); desc [S*K, 256] int8
     (+-1, invalid slots 0), of which the kernel reads each row's first 128
-    bytes; valid [S*K] bool. Returns best [R, S] int32.
+    bytes, at slots j * ``stride`` (K a multiple of stride); valid [S*K]
+    bool; ``slide_ids`` None (columns: the S slides) or [G, P] int32 (R a
+    multiple of G; group g of R / G rows against its P slides). Returns best
+    [R, S] or [R, P] int32. Counted as ``screen_listed`` with a slide list,
+    else ``screen_strided`` at a stride above 1, else ``screen``.
     """
+    if k_per_slide % stride:
+        raise ValueError(f"screen: K = {k_per_slide} is not a multiple of the stride {stride}")
+    if slide_ids is not None and (
+        slide_ids.dim() != 2 or slide_ids.shape[0] == 0 or query.shape[0] % slide_ids.shape[0]
+    ):
+        raise ValueError(
+            f"screen: slide_ids {tuple(slide_ids.shape)} is not [G, P] with G dividing the "
+            f"{query.shape[0]} query rows"
+        )
     if _kernels.plain_or_raise(query):
-        return screen_scores_plain(query, desc, valid, n_slides, k_per_slide)
+        return screen_scores_plain(query, desc, valid, n_slides, k_per_slide, stride, slide_ids)
     _kernels.require_cuda(query, "screen query", torch.int8, 2)
     _kernels.require_cuda(desc, "screen desc", torch.int8, 2)
     _kernels.require_cuda(valid, "screen valid", torch.bool, 1)
@@ -67,12 +98,19 @@ def screen_scores(
         )
     if query.data_ptr() % 16 or desc.data_ptr() % 16:
         raise ValueError("screen: query and desc must be 16-byte aligned (cp.async)")
-    best = torch.empty((r, n_slides), dtype=torch.int32, device=query.device)
-    if r == 0 or n_slides == 0:
+    if slide_ids is None:
+        name, ids_ptr, n_cols, rows_per_group = (
+            "screen" if stride == 1 else "screen_strided", None, n_slides, r)
+    else:
+        _kernels.require_cuda(slide_ids, "screen slide_ids", torch.int32, 2)
+        name, ids_ptr, n_cols = "screen_listed", slide_ids.data_ptr(), slide_ids.shape[1]
+        rows_per_group = r // slide_ids.shape[0]
+    best = torch.empty((r, n_cols), dtype=torch.int32, device=query.device)
+    if r == 0 or n_cols == 0:
         return best
     _kernels.launch(
-        "screen", "slideo_screen", query,
-        query.data_ptr(), r, desc.data_ptr(), valid.data_ptr(), n_slides,
-        k_per_slide, best.data_ptr(),
+        name, "slideo_screen", query,
+        query.data_ptr(), r, desc.data_ptr(), valid.data_ptr(), k_per_slide, stride, ids_ptr,
+        n_cols, rows_per_group, best.data_ptr(),
     )
     return best

@@ -5,8 +5,9 @@ hamming = (256 - <q, d>) / 2, so the table is a max/argmax of dot products
 per (query, slide): kernel K5 (csrc/table.cu) on CUDA, the chunked matmul of
 ``hamming.py:307-358`` on the CPU. Decks above
 ``MatchConfig.screen_above_slides`` first go through stage-1 screening
-(``screen_slides_batched``, kernel K5 mode (b), csrc/screen.cu), and the
-exact table then covers each frame's candidate slides only. Everything here
+(``screen_slides_batched``, kernel K5 mode (b), csrc/screen.cu, also in
+its strided and listed forms for the optional pre-vote), and the exact
+table then covers each frame's candidate slides only. Everything here
 is bit-equal to the JAX package.
 
 The SIFT engine's float counterparts (``hamming.py:392-456``, ``:641-700``)
@@ -143,30 +144,52 @@ def screen_slides_batched(
     k_per_slide: int,
     cfg: MatchConfig,
 ) -> torch.Tensor:
-    """Stage-1 candidate slides of a batch of frames in one index sweep.
+    """Stage-1 candidate slides of a batch of frames (``hamming.py:492-605``).
 
-    qdesc [B, Qs, D] int8: each frame's ``screen_queries`` rows. All frames'
-    128-bit prefixes stack into one [B*Qs, 128] screening call over every
-    slot of every slide (full K); each frame's candidates are the stable top
-    ``min(cfg.screen_slides, n_slides)`` of its votes. Returns [B, C] int32.
-    The strided pre-vote (``screen_prevote``) and prefixes other than 128
-    bits are not ported and are refused. ``screen_k_per_slide`` is not read:
-    the JAX package's batched path ignores it too and votes over full K.
+    qdesc [B, Qs, D] int8: each frame's ``screen_queries`` rows, strongest
+    first. Returns [B, C] int32, C = ``min(cfg.screen_slides, n_slides)``.
+
+    Single stage: all frames' 128-bit prefixes stack into one [B*Qs, 128]
+    screening call over every slot of every slide (full K); each frame's
+    candidates are the stable top C of its votes.
+
+    With ``cfg.screen_prevote``, when the deck has more than
+    P = ``screen_prevote_slides`` slides and K is a multiple of 128 *
+    ``screen_prevote_k_stride``: (1a) each frame's strongest
+    ``screen_prevote_queries`` prefixes vote over every stride-th slot of
+    every slide and keep their top P slides; (1b) all Qs prefixes of each
+    frame vote again over full K of its own P slides only (the survivors'
+    own best-distance threshold), and the candidates are those slides in
+    the order of the re-vote's stable top C: ties fall to the earlier
+    position in the pre-vote's list, not to the lower slide id.
+
+    Prefixes other than 128 bits are refused. ``screen_k_per_slide`` is not
+    read: the JAX package's batched path ignores it too.
     """
-    if cfg.screen_prevote:
-        raise NotImplementedError(
-            "screen_prevote=True: the strided pre-vote is not ported to slideo_tpu_torch"
-        )
     if cfg.screen_bits != SCREEN_BITS:
         raise NotImplementedError(
             f"screen_bits={cfg.screen_bits}: only {SCREEN_BITS}-bit screening "
             "is ported to slideo_tpu_torch"
         )
     b, qs, _ = qdesc.shape
-    prefixes = qdesc[..., :SCREEN_BITS].reshape(b * qs, SCREEN_BITS).contiguous()
-    best = screen_scores(prefixes, index.desc, index.valid, n_slides, k_per_slide)
+    prefixes = qdesc[..., :SCREEN_BITS]
+    flat = prefixes.reshape(b * qs, SCREEN_BITS).contiguous()
+    c_out = min(cfg.screen_slides, n_slides)
+    p, stride = cfg.screen_prevote_slides, cfg.screen_prevote_k_stride
+    # JAX's guard (hamming.py:547-551) comes from the TPU kernel's lane
+    # geometry (128-slot tiles), not from the math; kept because it decides
+    # which rule runs, and so the candidates.
+    if cfg.screen_prevote and n_slides > p and k_per_slide % (128 * stride) == 0:
+        npq = min(cfg.screen_prevote_queries, qs)
+        strong = prefixes[:, :npq].reshape(b * npq, SCREEN_BITS).contiguous()
+        best = screen_scores(strong, index.desc, index.valid, n_slides, k_per_slide, stride=stride)
+        pre = top_k(_screen_votes(best.reshape(b, npq, n_slides)), p)[1].to(torch.int32)
+        best = screen_scores(flat, index.desc, index.valid, n_slides, k_per_slide, slide_ids=pre)
+        order = top_k(_screen_votes(best.reshape(b, qs, p)), c_out)[1]
+        return torch.gather(pre, 1, order)
+    best = screen_scores(flat, index.desc, index.valid, n_slides, k_per_slide)
     votes = _screen_votes(best.reshape(b, qs, n_slides))
-    return top_k(votes, min(cfg.screen_slides, n_slides))[1].to(torch.int32)
+    return top_k(votes, c_out)[1].to(torch.int32)
 
 
 def match_table_frame(
@@ -182,11 +205,11 @@ def match_table_frame(
     most ``cfg.screen_above_slides`` slides; above that, the frame's
     stage-1 candidates (``screen_slides_batched`` on a batch of one) and the
     exact table over those columns. The port has one stage-1 rule, the
-    batched path's, so a frame gets the same candidates alone as in a batch
-    (the JAX package's per-frame ``_screen_slides`` is not ported). That
-    rule votes over full K, so a ``screen_k_per_slide`` below
-    ``k_per_slide``, which JAX's per-frame rule trims stage 1 to, is
-    refused."""
+    batched path's, with or without ``screen_prevote``, so a frame gets the
+    same candidates alone as in a batch (the JAX package's per-frame
+    ``_screen_slides`` is not ported). That rule votes over full K, so a
+    ``screen_k_per_slide`` below ``k_per_slide``, which JAX's per-frame
+    rule trims stage 1 to, is refused."""
     if n_slides <= cfg.screen_above_slides:
         return match_table(query, index, n_slides, k_per_slide)
     if cfg.screen_k_per_slide < k_per_slide:

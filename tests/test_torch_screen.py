@@ -22,6 +22,7 @@ the Pallas screening kernel runs with ``interpret=True``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import re
 import tomllib
 from pathlib import Path
@@ -248,10 +249,9 @@ def test_match_table_frame_screens_decks_above_the_limit(n_slides):
 def test_screening_refuses_options_not_ported():
     ti = _port_index(np.ones((2, 128, 256), np.int8), np.ones((2, 128), bool))
     q = torch.ones((1, 4, 256), dtype=torch.int8)
-    for field, value in (("screen_prevote", True), ("screen_bits", 64)):
-        cfg = port_cfg(dataclasses.replace(DEFAULT_CONFIG.match, **{field: value}))
-        with pytest.raises(NotImplementedError, match=field):
-            tham.screen_slides_batched(q, ti, 2, 128, cfg)
+    cfg = port_cfg(dataclasses.replace(DEFAULT_CONFIG.match, screen_bits=64))
+    with pytest.raises(NotImplementedError, match="screen_bits"):
+        tham.screen_slides_batched(q, ti, 2, 128, cfg)
 
 
 # --- the 100-slide deck of test_screened_batch.py --------------------------
@@ -259,8 +259,12 @@ def test_screening_refuses_options_not_ported():
 HW = (180, 240)
 
 
-@pytest.fixture(scope="module")
-def deck100():
+@functools.lru_cache(maxsize=1)
+def _deck100_deck():
+    """The 100-slide deck, 3 warped frames of it, the small ORB config and
+    the JAX package's index of the deck with its screening tensor (K = 384),
+    built once a process: the index reads ``cfg.orb`` and ``cfg.video``
+    only, so every ``match`` of ``deck100_inputs`` shares it."""
     rng = np.random.RandomState(3)
     n_slides = 100
     slides = _deck(rng, n_slides, HW)
@@ -285,6 +289,21 @@ def deck100():
     index = index._replace(
         desc_index=di._replace(screen_desc=jham.build_screen_desc(di.desc, di.valid, n_slides, k))
     )
+    return cfg, slides, frames, index
+
+
+def deck100_inputs(**match):
+    """The 100-slide deck, 3 warped frames of it, the config (small ORB,
+    ``match`` fields over the default MatchConfig) and the JAX package's
+    index of the deck with its screening tensor (K = 384)."""
+    cfg, slides, frames, index = _deck100_deck()
+    return (dataclasses.replace(cfg, match=dataclasses.replace(cfg.match, **match)),
+            slides, frames, index)
+
+
+@pytest.fixture(scope="module")
+def deck100():
+    cfg, slides, frames, index = deck100_inputs()
     seeds = jnp.arange(len(frames), dtype=jnp.int32)
     want = jom.match_frames(jnp.asarray(frames), seeds, index, HW, cfg)   # batched path
     return cfg, slides, frames, index, want
