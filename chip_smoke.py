@@ -90,6 +90,23 @@ Phases:
    slide. Each prints its frames/s and a per-stage split of
    ``match_frames_sift`` (features, table, select + RANSAC, verify) from
    CUDA events.
+9. The index cache and the viewer, reusing the cold indexes of phases 4,
+   5 and 8 (a): each deck's pages are written as PNG files (zlib and
+   struct only) under a temporary TMPDIR, the cold index is saved under
+   the pipeline's own key of those files by its own save function, and a
+   warm ``MatchingEngine`` from the files must load it (its breakdown
+   names a load, no build) with no kernel launched; the warm index must
+   equal the cold one (ORB desc, valid and pts bit-equal; SIFT valid, pts
+   and scale bit-equal, desc within 2^-11; thumbnails within 0.0625), and
+   the cold run's frames through the warm engine must give its rows
+   exactly (phase 5's 80 frames, screened). Prints each archive's MB, the
+   cold extract_s, save_fetch_s, save_write_s and the warm read_s and
+   upload_assemble_s beside the card's name and power limit. Then the
+   viewer's server (``make_server``, port 0, in a thread, shut down in a
+   ``finally``) over phase 4's store: ``/pdf-matchings/<hash>`` returns
+   phase 4's rows in the JAX package's JSON shape, ``/files/<hash>`` with a
+   ``Range`` header returns 206 and the bytes of a page file, ``/`` the
+   port's index.html.
 
 ``python3 chip_smoke.py --profiler-check`` runs phases 1 and 2 and then
 only the cross-check of the device-time method: K5's graph-replay device
@@ -114,7 +131,7 @@ that takes patch origins): ptxas's resources and SASS counts, every K3+K4
 case of ``orb_cases``, device ms at the three describe shapes.
 
 Every path (phases 4, 5 screened and pre-vote, 6a, 6b, 7's profile, 8a,
-8b screened and exact) runs with the launch counts set to 0 just before it and read
+8b screened and exact, 9's three warm runs) runs with the launch counts set to 0 just before it and read
 just after; a kernel's ``launches`` is its count summed over them, where
 the table launches of 6b are K5 (c)'s and the others K5 (a)'s. Every kernel has two times: call
 ms (``cuda_ms``: one wrapper call between two CUDA events, the wrapper's
@@ -139,10 +156,13 @@ import hashlib
 import json
 import math
 import os
+import shutil
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -1292,33 +1312,36 @@ def make_stream(rng: np.random.RandomState, deck: np.ndarray):
     return runs
 
 
-def phase_slice(torch, deck: np.ndarray, runs, seed: int, smi: str) -> dict:
+def phase_slice(torch, deck: np.ndarray, runs, seed: int, smi: str, db_dir: Path) -> dict:
     from slideo_tpu_torch import DEFAULT_CONFIG
 
-    out = drive_engine(torch, DEFAULT_CONFIG, deck, runs, seed, smi, "slice")
+    out = drive_engine(torch, DEFAULT_CONFIG, deck, runs, seed, smi, "slice", db_dir=db_dir)
     for name in ("fast", "orb", "table", "warp"):
         check(out["launches"][name] > 0, f"kernel {name} was never launched by the match path")
     return out
 
 
 def drive_engine(torch, cfg, deck: np.ndarray, runs, seed: int, smi: str, tag: str,
-                 mesh_devices=None, strict: bool = True) -> dict:
+                 mesh_devices=None, strict: bool = True, engine=None, db_dir=None) -> dict:
     """Index ``deck`` with ``MatchingEngine`` (on a frame-parallel mesh of
     ``mesh_devices`` when given, else on cuda:0 alone, however many cards
-    there are) and stream the runs' frames through
-    ``match_samples``, with every launch count set to 0 just before and
-    read just after; write the timeline through the port's ``Db``, read it
-    back and check it against the runs (with ``strict`` False, check only
-    that every changed frame got its run's page: dedup may merge runs of
-    near-duplicate slides in the timeline). Returns the launches, the
-    frame -> page rows of every matched frame (the engine's checkpoint
-    rows), the sampled frames by index, the timeline rows, the engine and
-    the sampled frames per second."""
+    there are), or take ``engine`` as it is, and stream the runs' frames
+    through ``match_samples``, with every launch count set to 0 just
+    before and read just after; write the timeline through the port's
+    ``Db`` (in ``db_dir``, kept, when given), read it back and check it
+    against the runs (with ``strict`` False, check only that every changed
+    frame got its run's page: dedup may merge runs of near-duplicate
+    slides in the timeline). Returns the launches, the frame -> page rows
+    of every matched frame (the engine's checkpoint rows), the sampled
+    frames by index, the timeline rows, the engine, the build's breakdown,
+    the deck's and the video's hashes and the sampled frames per second."""
     from slideo_tpu_torch import _kernels
+    from slideo_tpu_torch.app import pipeline
     from slideo_tpu_torch.app.db import Db
     from slideo_tpu_torch.app.pipeline import MatchingEngine, PdfPage
 
-    pdf_hash = hashlib.sha256(f"chip-smoke-deck-{tag}-{seed}".encode()).hexdigest()
+    pdf_hash = (hashlib.sha256(f"chip-smoke-deck-{tag}-{seed}".encode()).hexdigest()
+                if engine is None else engine.pages[0].pdf_hash)
     video_hash = hashlib.sha256(f"chip-smoke-video-{tag}-{seed}".encode()).hexdigest()
     pages = [PdfPage(Path("deck.pdf"), pdf_hash, Path(f"p-{i + 1}.png"), i + 1) for i in range(len(deck))]
     samples, expected, idx = [], [], 0
@@ -1339,10 +1362,13 @@ def drive_engine(torch, cfg, deck: np.ndarray, runs, seed: int, smi: str, tag: s
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     one_device = mesh_devices is None
-    engine = MatchingEngine(cfg, pages, device="cuda:0", page_grays=deck,
-                            mesh_devices=["cuda:0"] if one_device else mesh_devices)
+    built = engine is None
+    if built:
+        engine = MatchingEngine(cfg, pages, device="cuda:0", page_grays=deck,
+                                mesh_devices=["cuda:0"] if one_device else mesh_devices)
     torch.cuda.synchronize()
     t_index = time.perf_counter() - t0
+    build = dict(pipeline.LAST_BUILD_BREAKDOWN) if built else {}
     check((engine.mesh is None) == one_device, f"{tag}: the engine's mesh is {engine.mesh}")
     t0 = time.perf_counter()
     timeline = engine.match_samples(samples, total_ms=total_ms, total_frames=total_frames,
@@ -1350,14 +1376,15 @@ def drive_engine(torch, cfg, deck: np.ndarray, runs, seed: int, smi: str, tag: s
     torch.cuda.synchronize()
     t_match = time.perf_counter() - t0
     launches = dict(_kernels.launches)
-    print(f"[{tag}] index of {len(deck)} slides {FRAME_HW[0]}x{FRAME_HW[1]} built in {t_index:.3f} s "
-          f"({smi}); mesh {engine.mesh}")
+    if built:
+        print(f"[{tag}] index of {len(deck)} slides {FRAME_HW[0]}x{FRAME_HW[1]} built in "
+              f"{t_index:.3f} s ({smi}); mesh {engine.mesh}")
     print(f"[{tag}] {len(samples)} sampled frames ({len(matched)} changed and matched) in "
           f"{t_match:.3f} s: {len(samples) / t_match:.2f} frames/s ({smi}); kernel launches {launches}")
 
     with tempfile.TemporaryDirectory() as td:
-        os.environ["SLIDEO_DB_DIR"] = td
-        db = Db()
+        Path(db_dir or td).mkdir(parents=True, exist_ok=True)
+        db = Db(Path(db_dir or td) / "slideo.db")
         db.create_or_reset_video(video_hash, [pdf_hash])
         db.finalize_video_matchings(video_hash, [
             (m.video_ms, m.page.pdf_hash if m.page else None,
@@ -1392,7 +1419,8 @@ def drive_engine(torch, cfg, deck: np.ndarray, runs, seed: int, smi: str, tag: s
               "matched to another page")
     check(rows[-1][1] is None and rows[-1][0] == total_ms, f"{tag}: the sentinel row is not last")
     return dict(launches=launches, matched=matched, frames={i: f for i, _, f in samples},
-                timeline=got, engine=engine, fps=len(samples) / t_match)
+                timeline=got, engine=engine, build=build, pdf_hash=pdf_hash,
+                video_hash=video_hash, fps=len(samples) / t_match)
 
 
 def make_reveal_deck(rng: np.random.RandomState, n_pages: int = SCREENED_PAGES) -> np.ndarray:
@@ -1430,11 +1458,12 @@ def make_screened_stream(rng: np.random.RandomState, deck: np.ndarray, n_familie
     return runs
 
 
-def phase_screened(torch, seed: int, smi: str) -> tuple[list, list, dict]:
+def phase_screened(torch, seed: int, smi: str) -> tuple[list, list, dict, dict]:
     """The screened path on a 500-slide deck, with and without the
     pre-vote; returns K5 (b)'s kernel rows (single stage, strided, listed),
-    the launches of the screened and the pre-vote runs, and the exact run
-    (``drive_engine``'s result)."""
+    the launches of the screened and the pre-vote runs, the exact run and
+    the screened run (``drive_engine``'s results; the screened one also
+    holds the deck and the runs)."""
     import dataclasses
 
     from slideo_tpu_torch import DEFAULT_CONFIG
@@ -1561,7 +1590,8 @@ def phase_screened(torch, seed: int, smi: str) -> tuple[list, list, dict]:
         time_table(torch, label, query, di, n_slides, kps_per, cand, smi)
     check_table(torch, f"Q={q} x {n_slides} slides", query, di, n_slides, kps_per)
     time_table(torch, f"Q={q} x {n_slides} slides", query, di, n_slides, kps_per, None, smi)
-    return rows, [screened["launches"], prevote_launches], exact
+    screened.update(deck=deck, runs=runs)
+    return rows, [screened["launches"], prevote_launches], exact, screened
 
 
 def mesh_devices(torch) -> list:
@@ -1796,11 +1826,11 @@ def sift_stage_split(torch, engine, frames: list[np.ndarray], cfg, smi: str, tag
           + f"; sum {sum(med.values()):.3f} ({smi})")
 
 
-def phase_sift(torch, deck: np.ndarray, seed: int, smi: str) -> list[dict]:
+def phase_sift(torch, deck: np.ndarray, seed: int, smi: str) -> tuple[list[dict], dict]:
     """(a) the SIFT engine on phase 4's deck, (b) screened == exact on the
     first 250 slides of phase 5's reveal deck (made again from phase 5's
     seed, so no earlier phase holds it); returns the three runs' launches,
-    (a)'s first."""
+    (a)'s first, and (a)'s run with its runs of frames."""
     import dataclasses
 
     from slideo_tpu_torch import DEFAULT_CONFIG
@@ -1816,7 +1846,7 @@ def phase_sift(torch, deck: np.ndarray, seed: int, smi: str) -> list[dict]:
     check(a["launches"]["warp"] == 0, "the SIFT run launched the similarity form of K6")
     sift_stage_split(torch, a["engine"], [f for _, fs in runs[:8] for f in fs[:1]], cfg, smi, "sift64")
     launches = [a["launches"]]
-    del a
+    a["runs"] = runs
 
     deck250 = make_reveal_deck(np.random.RandomState(seed + 1), SIFT_SLIDES // PER_FAMILY)
     runs = make_sift_family_stream(torch, rng, deck250)
@@ -1836,7 +1866,190 @@ def phase_sift(torch, deck: np.ndarray, seed: int, smi: str) -> list[dict]:
           "SIFT screened and exact assignments differ")
     for run in (screened, exact):
         check(run["launches"]["warp_homography"] > 0, "K6h was never launched by a 250-slide SIFT run")
-    return launches + [screened["launches"], exact["launches"]]
+    return launches + [screened["launches"], exact["launches"]], a
+
+
+def write_png(path: Path, gray: np.ndarray) -> None:
+    """An 8-bit greyscale PNG of ``gray`` [H, W] uint8, made with zlib and
+    struct alone (the card's machine has no image codec): filter 0 on every
+    row, zlib level 1."""
+    h, w = gray.shape
+    raw = np.zeros((h, w + 1), np.uint8)
+    raw[:, 1:] = gray
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    path.write_bytes(b"\x89PNG\r\n\x1a\n"
+                     + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+                     + chunk(b"IDAT", zlib.compress(raw.tobytes(), 1)) + chunk(b"IEND", b""))
+
+
+def write_pages(deck: np.ndarray, folder: Path, pdf_hash: str) -> list:
+    """The deck's pages as PNG files ``p-N.png`` in ``folder`` (in 8
+    threads: zlib releases the GIL), as the port's ``PdfPage`` records."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from slideo_tpu_torch.app.pipeline import PdfPage
+
+    folder.mkdir(parents=True)
+    paths = [folder / f"p-{i + 1}.png" for i in range(len(deck))]
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write_png, paths, deck))
+    return [PdfPage(folder / "deck.pdf", pdf_hash, p, i + 1) for i, p in enumerate(paths)]
+
+
+def cache_case(torch, tag: str, cfg, deck: np.ndarray, pages: list, cold: dict, seed: int,
+               smi: str, strict: bool = True) -> dict:
+    """One deck's index cache round trip: the cold run's index saved under
+    the key of ``pages`` (PNG files of ``deck``) by the pipeline's own
+    functions, a warm ``MatchingEngine`` from those files that must load
+    it and launch no kernel, the two indexes compared, and the cold run's
+    frames through the warm engine, which must give the cold run's rows
+    exactly. Returns the warm run (``drive_engine``'s result)."""
+    from slideo_tpu_torch import _kernels
+    from slideo_tpu_torch.app import pipeline
+    from slideo_tpu_torch.app.pipeline import MatchingEngine
+
+    sift = cfg.engine == "sift"
+    save = pipeline._save_sift_index if sift else pipeline._save_orb_index
+    key = pipeline._index_cache_key(pages, cfg, "cuda:0")
+    c = cold["engine"]
+    pipeline.LAST_BUILD_BREAKDOWN.clear()
+    torch.cuda.synchronize()
+    save(key, c.index, c.slide_hw)
+    saved = dict(pipeline.LAST_BUILD_BREAKDOWN)
+    mb = pipeline._index_path(key).stat().st_size / 1e6
+
+    _kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = MatchingEngine(cfg, pages, device="cuda:0", mesh_devices=["cuda:0"])
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    launched = {k: v for k, v in _kernels.launches.items() if v}
+    loaded = dict(pipeline.LAST_LOAD_BREAKDOWN)
+    check(not pipeline.LAST_BUILD_BREAKDOWN and set(loaded) == {"read_s", "upload_assemble_s"},
+          f"{tag}: the warm engine did not load its index ({pipeline.LAST_BUILD_BREAKDOWN})")
+    check(not launched, f"{tag}: the warm engine launched kernels while it loaded: {launched}")
+    check(warm.slide_hw == c.slide_hw, f"{tag}: warm slide_hw {warm.slide_hw} != {c.slide_hw}")
+
+    w = warm.index
+    if sift:
+        for f in ("valid", "pts", "scale"):
+            check(torch.equal(getattr(w, f), getattr(c.index, f)), f"{tag}: warm {f} differs")
+        # f16 keeps 11 significant bits: 2^-11 apart in [0.5, 1), the unit
+        # descriptors' largest values; a rounding moves a value half that.
+        desc_err = (w.desc - c.index.desc).abs().max().item()
+        check(desc_err <= 2.0 ** -11, f"{tag}: warm desc off by {desc_err}")
+    else:
+        for f in ("desc", "valid", "slide_ids", "train_ids"):
+            check(torch.equal(getattr(w.desc_index, f), getattr(c.index.desc_index, f)),
+                  f"{tag}: warm {f} differs")
+        check(torch.equal(w.pts, c.index.pts), f"{tag}: warm pts differ")
+        desc_err = 0.0
+    small_err = (w.smalls - c.index.smalls).abs().max().item()
+    check(small_err <= 0.0625, f"{tag}: warm thumbnails off by {small_err} (> 0.0625)")
+
+    run = drive_engine(torch, cfg, deck, cold["runs"], seed, smi, f"warm-{tag}", engine=warm,
+                       strict=strict)
+    for name in ("warp_homography",) if sift else ("fast", "orb", "table", "warp"):
+        check(run["launches"][name] > 0, f"kernel {name} was never launched by the warm {tag} run")
+    check(run["matched"] == cold["matched"], f"{tag}: the warm engine's rows differ from the cold run's")
+    check(run["timeline"] == cold["timeline"], f"{tag}: the warm timeline differs from the cold one")
+    b = cold["build"]
+    print(f"[cache] {tag}: {len(deck)} slides, archive {mb:.3f} MB; cold extract_s "
+          f"{b['extract_s']:.4f}, save_fetch_s {saved['save_fetch_s']:.4f}, save_write_s "
+          f"{saved['save_write_s']:.4f}; warm read_s {loaded['read_s']:.4f}, upload_assemble_s "
+          f"{loaded['upload_assemble_s']:.4f}, constructor {t_warm:.4f} s (page hashes included); "
+          f"desc err {desc_err:.3g}, thumbnail err {small_err:.4f}; {len(run['matched'])} rows equal "
+          f"to the cold run's ({smi})")
+    return run
+
+
+def check_viewer(torch, db_dir: Path, slice_out: dict, page_file: Path) -> None:
+    """The viewer's server over phase 4's store: its matchings in the JSON
+    shape of the JAX package's ``/pdf-matchings`` (rows computed here from
+    the timeline), a byte range of one page file, the port's index.html."""
+    import threading
+    import urllib.request
+
+    from slideo_tpu_torch.app import web
+    from slideo_tpu_torch.app.db import Db
+    from slideo_tpu_torch.app.hashing import hash_file
+
+    pdf_hash, video_hash = slice_out["pdf_hash"], slice_out["video_hash"]
+    db_path = db_dir / "slideo.db"
+    file_hash = hash_file(page_file)
+    with Db(db_path) as db:
+        db.update_hashes([(str(page_file), file_hash)])
+    rows = slice_out["timeline"]
+    want = [dict(video_offset_ms=ms, pdf_hash=pdf_hash, video_hash=video_hash, page_idx=page,
+                 duration_ms=rows[i + 1][0] - ms if i + 1 < len(rows) else 5000)
+            for i, (ms, page) in enumerate(rows) if page is not None]
+    srv = web.make_server(db_path, port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        with urllib.request.urlopen(f"{base}/pdf-matchings/{pdf_hash}", timeout=30) as r:
+            got = json.loads(r.read())
+        check(got == want, f"viewer: /pdf-matchings rows {got} != {want}")
+        req = urllib.request.Request(f"{base}/files/{file_hash}", headers={"Range": "bytes=100-199"})
+        with urllib.request.urlopen(req, timeout=30) as r:
+            status, body, crange = r.status, r.read(), r.headers["Content-Range"]
+        size = page_file.stat().st_size
+        check(status == 206 and body == page_file.read_bytes()[100:200]
+              and crange == f"bytes 100-199/{size}", f"viewer: /files range {status} {crange}")
+        with urllib.request.urlopen(f"{base}/", timeout=30) as r:
+            index_html = r.read()
+        check(index_html == (web.STATIC_DIR / "index.html").read_bytes()
+              and web.STATIC_DIR.parent.parent.name == "slideo_tpu_torch",
+              "viewer: / does not serve the port's index.html")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+    print(f"[viewer] /pdf-matchings/{pdf_hash[:12]}..: {len(got)} rows as the JAX package's JSON; "
+          f"/files range 100-199 of {size} bytes: 206; /: the port's index.html")
+
+
+def phase_cache(torch, seed: int, smi: str, work: Path, slice_deck: np.ndarray, slice_runs,
+                slice_out: dict, screened: dict, sift64: dict, db_dir: Path) -> list[dict]:
+    """Phase 9: the index cache of phases 4, 5 and 8 (a)'s decks and the
+    viewer over phase 4's store; returns the warm runs' launches."""
+    import dataclasses
+    import tempfile
+
+    from slideo_tpu_torch import DEFAULT_CONFIG
+
+    old_tmp = os.environ.get("TMPDIR")
+    os.environ["TMPDIR"] = str(work / "tmp")   # the pipeline's archives go here
+    (work / "tmp").mkdir()
+    tempfile.tempdir = None
+    try:
+        t0 = time.perf_counter()
+        pages64 = write_pages(slice_deck, work / "deck64", slice_out["pdf_hash"])
+        pages500 = write_pages(screened["deck"], work / "deck500", screened["pdf_hash"])
+        print(f"[cache] {len(pages64) + len(pages500)} page PNGs written in "
+              f"{time.perf_counter() - t0:.2f} s (host)")
+        runs = [
+            cache_case(torch, "orb64", DEFAULT_CONFIG, slice_deck, pages64,
+                       dict(slice_out, runs=slice_runs), seed, smi),
+            cache_case(torch, "orb500", DEFAULT_CONFIG, screened["deck"], pages500, screened, seed,
+                       smi),
+            cache_case(torch, "sift64", dataclasses.replace(DEFAULT_CONFIG, engine="sift"),
+                       slice_deck, pages64, sift64, seed, smi),
+        ]
+        check_viewer(torch, db_dir, slice_out, pages64[0].image_path)
+    finally:
+        if old_tmp is None:
+            os.environ.pop("TMPDIR", None)
+        else:
+            os.environ["TMPDIR"] = old_tmp
+        tempfile.tempdir = None
+    return [r["launches"] for r in runs]
 
 
 def main() -> None:
@@ -1877,19 +2090,25 @@ def main() -> None:
     runs = make_stream(rng, deck)
     print(f"[data] deck {deck.shape} and {sum(len(f) for _, f in runs)} frames made in "
           f"{time.perf_counter() - t0:.2f} s (host)")
-    rows = phase_kernels(torch, deck, runs[0][1][0], args.seed, smi)
-    slice_out = phase_slice(torch, deck, runs, args.seed, smi)
-    screen_rows, screened_launches, exact = phase_screened(torch, args.seed, smi)
-    shard_row, dp_launches, ip_launches = phase_mesh(
-        torch, deck, runs, args.seed, smi, slice_out, exact)
-    del exact
-    k2_row, profile_launches = phase_fast_batch(torch, deck, runs, args.seed, smi)
-    sift_launches = phase_sift(torch, deck, args.seed, smi)
+    work = Path(tempfile.mkdtemp(prefix="chip-smoke-"))
+    try:
+        rows = phase_kernels(torch, deck, runs[0][1][0], args.seed, smi)
+        slice_out = phase_slice(torch, deck, runs, args.seed, smi, work / "db")
+        screen_rows, screened_launches, exact, screened = phase_screened(torch, args.seed, smi)
+        shard_row, dp_launches, ip_launches = phase_mesh(
+            torch, deck, runs, args.seed, smi, slice_out, exact)
+        del exact
+        k2_row, profile_launches = phase_fast_batch(torch, deck, runs, args.seed, smi)
+        sift_launches, sift64 = phase_sift(torch, deck, args.seed, smi)
+        cache_launches = phase_cache(torch, args.seed, smi, work, deck, runs, slice_out, screened,
+                                     sift64, work / "db")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     rows += [*screen_rows, shard_row, k2_row]
     # Each kernel's launches over every path of this run; the table
     # launches of the index-parallel step are K5 (c)'s.
     paths = [slice_out["launches"], *screened_launches, dp_launches, ip_launches, profile_launches,
-             *sift_launches]
+             *sift_launches, *cache_launches]
     counted = {name: sum(p[name] for p in paths) for name in paths[0]}
     counted["table"] -= ip_launches["table"]
     by_name = {"fast_nms": "fast", "orb_describe": "orb", "match_table": "table",

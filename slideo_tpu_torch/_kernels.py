@@ -105,7 +105,7 @@ def _run_all(cmds: list[list[str]]) -> None:
         raise RuntimeError("\n".join(failed))
 
 
-def source_digest(src_dir: Path) -> str:
+def source_digest(src_dir: Path = _SRC_DIR) -> str:
     """Hash of the build flags and of every file a build reads: the
     ``*.cu`` sources and the ``*.cuh`` headers they include."""
     digest = hashlib.sha256(" ".join(_FLAGS).encode())

@@ -1,10 +1,13 @@
 """SQLite matchings store, the viewer's on-disk contract.
 
 Port of ``slideo_tpu/app/db.py`` (reference crates/app/src/db.rs and its
-migration 20210309093718_setup.sql), limited to what the port's engine
-calls: the same schema, the same file location (``SLIDEO_DB_DIR``, else
-~/.config/Slideo/db/slideo.db) and the same row formats, so the JAX
-package, its viewer and the port read one another's rows.
+migration 20210309093718_setup.sql), limited to what the port's engine,
+command line and viewer server call: the same schema, the same file
+location (``SLIDEO_DB_DIR``, else ~/.config/Slideo/db/slideo.db), the same
+SQL and row formats, so the JAX package, its viewer and the port read one
+another's rows. The viewer's JSON rows (PdfVideoMatching, db.rs:194-201)
+keep the reference's duration rule (the delta to the video's next mapping,
+else 5000 ms, db.rs:212-271).
 """
 
 from __future__ import annotations
@@ -107,6 +110,25 @@ class Db:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+    # -- files -----------------------------------------------------------------
+
+    def update_hashes(self, file_hashes: list[tuple[str, str]]) -> None:
+        """Record path <-> hash pairs (delete-then-insert, db.rs:106-130)."""
+        with self.conn:
+            for path, h in file_hashes:
+                self.conn.execute(
+                    "DELETE FROM files WHERE file_path = ? OR hash = ?", (path, h)
+                )
+                self.conn.execute(
+                    "INSERT INTO files(file_path, hash) VALUES (?, ?)", (path, h)
+                )
+
+    def get_path(self, file_hash: str) -> Path | None:
+        row = self.conn.execute(
+            "SELECT file_path FROM files WHERE hash = ?", (file_hash,)
+        ).fetchone()
+        return Path(row[0]) if row else None
 
     # -- pdf page extraction cache (two-phase, db.rs:81-104, 318-341) ---------
 
@@ -240,3 +262,34 @@ class Db:
             (video_id,),
         ).fetchall()
         return [tuple(r) for r in rows], prog[0]
+
+    # -- viewer query (db.rs:212-271) ------------------------------------------
+
+    def get_pdf_video_matchings(self, pdf_hash: str) -> list[dict]:
+        """JSON rows of GET /pdf-matchings/{hash}: duration = delta to the
+        next mapping of the same video (any pdf), else 5000 ms."""
+        video_ids = self.conn.execute(
+            "SELECT DISTINCT video_id FROM videos_pdfs WHERE pdf_hash = ?",
+            (pdf_hash,),
+        ).fetchall()
+        result: list[dict] = []
+        for (video_id,) in video_ids:
+            rows = self.conn.execute(
+                "SELECT video_ms, pdf_hash, page, video_hash FROM videos_mapping"
+                " INNER JOIN videos ON videos.id = video_id"
+                " WHERE video_id = ? ORDER BY video_ms ASC",
+                (video_id,),
+            ).fetchall()
+            for i, (video_ms, row_pdf_hash, page, video_hash) in enumerate(rows):
+                duration_ms = rows[i + 1][0] - video_ms if i + 1 < len(rows) else 5000
+                if row_pdf_hash == pdf_hash:
+                    result.append(
+                        {
+                            "video_offset_ms": video_ms,
+                            "pdf_hash": row_pdf_hash,
+                            "video_hash": video_hash,
+                            "page_idx": page if page is not None else 0,
+                            "duration_ms": duration_ms,
+                        }
+                    )
+        return result

@@ -18,7 +18,7 @@ them (no ``fast_sparse_skip``: kernel K1's compass pretest is exact and
 always runs). Options the port does not run raise ``NotImplementedError``
 where they are read: ``screen_bits`` other than 128,
 ``screen_k_per_slide`` below the deck's keypoints per slide on the per-frame
-screened path, and the "chunk" and "seek" decode modes. ``MatchConfig``
+screened path. ``MatchConfig``
 refuses ``screen_prevote`` with more ``screen_slides`` than
 ``screen_prevote_slides`` (a ``ValueError``): the re-vote cannot return
 more candidates than the pre-vote kept, and the JAX package fails there
@@ -152,8 +152,9 @@ class VideoConfig:
     dedup_similarity: float = 0.98  # frame changed iff similarity < this
     small_image_area: int = 300 * 400  # max area of the comparison thumbnails
     batch_size: int = 64            # frames per device batch
-    decode_mode: str = "grab"       # "grab" (reference-exact sequential);
-                                    # "chunk" and "seek" are not ported
+    decode_mode: str = "grab"       # "grab" (reference-exact sequential),
+                                    # "chunk" (grab's frames, segments in
+                                    # parallel) or "seek" (one seek a frame)
     decode_workers: int = 8         # parallel decode segments ("chunk"/"seek")
 
 

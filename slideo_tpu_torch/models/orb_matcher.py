@@ -253,8 +253,21 @@ def match_frames(
 ) -> FrameMatch:
     """Match a [B, H, W] batch; fields come back [B]. Decks above
     ``cfg.match.screen_above_slides`` take the screened batch path, the
-    rest run frame by frame over the exact table."""
-    if index.pts.shape[0] > cfg.match.screen_above_slides:
+    rest run frame by frame over the exact table.
+
+    At a K that is not a multiple of 128 the JAX package screens each frame
+    with its per-frame rule (``hamming.py:733-782``; it builds no screening
+    tensor there). That rule gives the batched rule's candidates
+    (tests/test_torch_screen.py) unless it trims stage 1 to
+    ``screen_k_per_slide`` slots below K: that trim is refused."""
+    n_slides, k_per_slide = index.pts.shape[0], index.pts.shape[1]
+    if n_slides > cfg.match.screen_above_slides:
+        if k_per_slide % 128 and cfg.match.screen_k_per_slide < k_per_slide:
+            raise NotImplementedError(
+                f"screen_k_per_slide={cfg.match.screen_k_per_slide} < {k_per_slide} keypoints "
+                "per slide at a K that is not a multiple of 128: the JAX package's per-frame "
+                "trim of stage 1 is not ported to slideo_tpu_torch"
+            )
         return _match_frames_screened_batch(frames, frame_seeds, index, slide_hw, cfg)
     results = [
         match_frame(f, int(s), index, slide_hw, cfg) for f, s in zip(frames, frame_seeds)

@@ -31,6 +31,10 @@ __all__ = [
     "DescriptorIndex",
     "MatchTable",
     "build_index",
+    "pack_bits",
+    "unpack_bits",
+    "pack_descriptor_bits",
+    "unpack_descriptor_bits",
     "match_table",
     "match_table_frame",
     "match_table_float",
@@ -80,6 +84,48 @@ def build_index(slide_desc: torch.Tensor, slide_valid: torch.Tensor) -> Descript
     slide_ids = torch.arange(s, dtype=torch.int32, device=dev).repeat_interleave(k)
     train_ids = torch.arange(k, dtype=torch.int32, device=dev).repeat(s)
     return DescriptorIndex(desc.contiguous(), slide_ids, train_ids, valid.contiguous())
+
+
+def _msb_first(device: torch.device) -> torch.Tensor:
+    """Bit shifts of one byte, most significant first, as np.packbits packs."""
+    return torch.arange(7, -1, -1, dtype=torch.uint8, device=device)
+
+
+def pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """[..., n] of 0/1 -> [..., ceil(n/8)] uint8, zero-padded at the end."""
+    pad = -bits.shape[-1] % 8
+    if pad:
+        bits = torch.nn.functional.pad(bits, (0, pad))
+    bits = bits.to(torch.uint8).reshape(*bits.shape[:-1], -1, 8)
+    return (bits << _msb_first(bits.device)).sum(dim=-1, dtype=torch.uint8)
+
+
+def unpack_bits(packed: torch.Tensor, n: int) -> torch.Tensor:
+    """Inverse of ``pack_bits``: [..., m] uint8 -> [..., n] uint8 of 0/1
+    (n <= 8m)."""
+    bits = (packed[..., None] >> _msb_first(packed.device)) & 1
+    return bits.reshape(*packed.shape[:-1], -1)[..., :n]
+
+
+def pack_descriptor_bits(
+    desc: torch.Tensor, valid: torch.Tensor, s: int, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """np.packbits on the device (``hamming.py:110-134``): the index's desc
+    [S*K, D] (bit = value > 0) and valid [S*K] -> desc_bits [S, K, D/8]
+    uint8 and valid_bits [S, ceil(K/8)] uint8, MSB first."""
+    desc_bits = pack_bits((desc > 0).reshape(s, k, -1))
+    return desc_bits, pack_bits(valid.reshape(s, k))
+
+
+def unpack_descriptor_bits(
+    desc_bits: torch.Tensor, valid_bits: torch.Tensor, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """np.unpackbits on the device (``hamming.py:85-107``), the inverse of
+    ``pack_descriptor_bits``: desc [S, K, D] int8 in {-1, +1} and valid
+    [S, K] bool, the inputs of ``build_index``."""
+    d = desc_bits.shape[-1] * 8
+    desc = unpack_bits(desc_bits, d).to(torch.int8) * 2 - 1
+    return desc, unpack_bits(valid_bits, k).to(torch.bool)
 
 
 def match_table(

@@ -302,6 +302,18 @@ def fixture_pages(fixture_dir, tmp_path_factory):  # noqa: F811
         return tpipeline.pdfs_to_images([(fixture_dir["pdf_path"], fixture_dir["pdf_hash"])], db)
 
 
+@pytest.fixture
+def isolated_tmp(tmp_path, monkeypatch):
+    """An engine built from page files keeps its index under TMPDIR: keep
+    it in this test's own directory."""
+    import tempfile
+
+    monkeypatch.setenv("TMPDIR", str(tmp_path))
+    tempfile.tempdir = None
+    yield tmp_path
+    tempfile.tempdir = None
+
+
 def _timeline(engine, video):
     return [
         (m.video_ms, m.video_frame_idx, m.page.page_nr if m.page else None)
@@ -309,7 +321,8 @@ def _timeline(engine, video):
     ]
 
 
-def test_engine_mesh_gives_the_one_device_timeline(fixture_dir, small_cfg, fixture_pages):  # noqa: F811
+def test_engine_mesh_gives_the_one_device_timeline(fixture_dir, small_cfg, fixture_pages,  # noqa: F811
+                                                    isolated_tmp):
     cfg = port_cfg(small_cfg)
     single = tpipeline.MatchingEngine(cfg, fixture_pages, device="cpu")
     meshed = tpipeline.MatchingEngine(cfg, fixture_pages, device="cpu", mesh_devices=["cpu", "cpu"])
@@ -319,7 +332,8 @@ def test_engine_mesh_gives_the_one_device_timeline(fixture_dir, small_cfg, fixtu
     assert [p for _, _, p in want] == [1, 3, None]
 
 
-def test_multihost_branch_at_world_size_1(fixture_dir, small_cfg, fixture_pages, monkeypatch):  # noqa: F811
+def test_multihost_branch_at_world_size_1(fixture_dir, small_cfg, fixture_pages, monkeypatch,  # noqa: F811
+                                          isolated_tmp):
     engine = tpipeline.MatchingEngine(port_cfg(small_cfg), fixture_pages, device="cpu")
     base = _timeline(engine, fixture_dir["vid_path"])
     monkeypatch.setenv("SLIDEO_MULTIHOST", "1")

@@ -83,7 +83,9 @@ def test_two_process_gather_and_db_gate(tmp_path):
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
-    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    (tmp_path / "tmp").mkdir()
+    # The engine keeps its index under TMPDIR: this test's own directory.
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1", TMPDIR=str(tmp_path / "tmp"))
     env.pop("SLIDEO_MULTIHOST", None)
     procs = [
         subprocess.Popen(

@@ -17,6 +17,12 @@ the Pallas screening kernel runs with ``interpret=True``.
 (iv)  On JAX's own features: the same candidates, a bit-equal stage-2 table
       over them and, with JAX's RANSAC draws, the same slide, rating and
       similarity as JAX's batched screened path.
+(v)   At a K that is not a multiple of 128 (K = 200, 12 slides over a
+      lowered limit of 8), where the JAX package screens frame by frame
+      (``_screen_slides``, no screening tensor): the port's batched rule
+      gives its candidates on its features and ``match_frames`` its slides;
+      a ``screen_k_per_slide`` below K, which that rule trims to, is
+      refused.
 """
 
 from __future__ import annotations
@@ -381,3 +387,50 @@ def test_screened_stage2_and_cascade_with_jax_draws(deck100):
             assert abs(float(got.similarity) - w_sim) <= 1e-4, i
         else:
             assert float(got.similarity) == w_sim, i
+
+
+def test_per_frame_rule_at_k_not_a_multiple_of_128():
+    rng = np.random.RandomState(5)
+    n_slides = 12
+    slides = _deck(rng, n_slides, HW)
+    slides[3] = 0                     # a slide with no valid slot
+    import cv2
+
+    frames = []
+    for s in (0, 1, 2, 4, 6, 9):
+        m = cv2.getRotationMatrix2D((HW[1] / 2, HW[0] / 2), rng.uniform(-2, 2), rng.uniform(0.95, 1.0))
+        fr = cv2.warpAffine(slides[s], m, (HW[1], HW[0]), borderValue=40)
+        frames.append(np.clip(fr.astype(np.float32) + rng.randn(*HW), 0, 255).astype(np.uint8))
+    frames.append(rng.randint(0, 256, HW).astype(np.uint8))
+    frames = np.stack(frames)
+    cfg = dataclasses.replace(
+        DEFAULT_CONFIG,
+        orb=OrbConfig(n_features=200, max_keypoints=200, n_levels=4, edge_threshold=32),
+        match=dataclasses.replace(DEFAULT_CONFIG.match, ransac_iters=256, min_rating=20.0,
+                                  screen_above_slides=8, screen_slides=4, screen_queries=128),
+    )
+    tcfg = port_cfg(cfg)
+    ji = jom.build_slide_index(jnp.asarray(slides), cfg)
+    k = ji.pts.shape[1]
+    assert k == 200 and ji.desc_index.screen_desc is None  # JAX takes its per-frame rule
+    ti = tom.slide_index_from_numpy(
+        np.asarray(ji.desc_index.desc), np.asarray(ji.desc_index.valid), np.asarray(ji.pts),
+        np.asarray(ji.smalls), device="cpu",
+    )
+    meta = jfeat.pyramid_meta(*HW, cfg.orb)
+    for frame in frames:
+        atlas = jfeat.build_pyramid(jnp.asarray(frame).astype(jnp.float32), cfg.orb)
+        feats = jfeat.describe(atlas, meta, jfeat.detect_pyramid(atlas, meta, cfg.orb), k, cfg.orb)
+        want = jham._screen_slides(feats.desc, feats.score, ji.desc_index, n_slides, cfg.match)
+        t = [torch.from_numpy(np.array(a)) for a in (feats.desc, feats.score, feats.valid)]
+        qdesc = tham.screen_queries(*t, tcfg.match)
+        got = tham.screen_slides_batched(qdesc[None], ti.desc_index, n_slides, k, tcfg.match)[0]
+        assert got.tolist() == np.asarray(want).tolist()
+
+    want = jom.match_frames(jnp.asarray(frames), jnp.arange(len(frames), dtype=jnp.int32), ji, HW, cfg)
+    got = tom.match_frames(torch.from_numpy(frames), list(range(len(frames))), ti, HW, tcfg)
+    assert got.slide.tolist() == np.asarray(want.slide).tolist() == [0, 1, 2, 4, 6, 9, -1]
+
+    trim = port_cfg(dataclasses.replace(cfg, match=dataclasses.replace(cfg.match, screen_k_per_slide=128)))
+    with pytest.raises(NotImplementedError, match="screen_k_per_slide=128 < 200"):
+        tom.match_frames(torch.from_numpy(frames[:1]), [0], ti, HW, trim)

@@ -7,8 +7,9 @@
 3. Port ``sync`` and JAX ``pipeline.sync`` write the same videos_mapping
    rows (the fixture of test_pipeline.py).
 4. The port imports and runs its slice, exact, screened and on a
-   frame-parallel mesh, and imports its mesh and stage-profile modules,
-   without importing jax, cv2 or anything of the JAX package.
+   frame-parallel mesh, and imports its mesh, stage-profile, command-line,
+   viewer-server, tracing and protocol modules, without importing jax, cv2
+   or anything of the JAX package.
 """
 
 from __future__ import annotations
@@ -143,9 +144,11 @@ import sys
 import numpy as np
 import torch
 
-from slideo_tpu_torch import DEFAULT_CONFIG
+from slideo_tpu_torch import DEFAULT_CONFIG, matching  # noqa: F401
+from slideo_tpu_torch.app import cli, web  # noqa: F401
 from slideo_tpu_torch.app.pipeline import MatchingEngine, PdfPage
 from slideo_tpu_torch.ops import cuda_fast, cuda_orb, cuda_table, cuda_warp  # noqa: F401
+from slideo_tpu_torch.utils import trace  # noqa: F401
 from slideo_tpu_torch.parallel import mesh  # noqa: F401
 from slideo_tpu_torch.tools import profile_stages  # noqa: F401
 
