@@ -107,6 +107,27 @@ Phases:
    phase 4's rows in the JAX package's JSON shape, ``/files/<hash>`` with a
    ``Range`` header returns 206 and the bytes of a page file, ``/`` the
    port's index.html.
+10. The per-frame stage-1 rule (``hamming.screen_slides_frame``, the JAX
+   package's ``_screen_slides``), which ``match_frames`` takes where the
+   JAX package does: at ``screen_bits`` other than 128 or a K that is not
+   a multiple of 128. (a) Its prefix table against the plain version,
+   bit-equal: K5 (b)'s prefix form on phase 5's 500 x 2048 index with one
+   frame's 256 query rows (picked by raw score, as the rule picks them)
+   and with 64 frames', at (slots, prefix bits) = (512, 128), (2048, 64)
+   and (512, 64); on ``adversarial_table``'s index at K = 1000 at (512,
+   128), (1000, 64), (333, 100) (a ragged last tile, a prefix padded to
+   128) and K5 (a) over the first 512 slots at 200 bits. Each case prints
+   call and device ms, plain ms, the bound and (but at 64 frames, whose
+   product would not fit) ``torch._int_mm`` of the product alone.
+   (b) ``MatchingEngine`` on phase 5's deck and frames twice: at
+   ``screen_bits = 64`` (K = 2048) and at ``OrbConfig(max_keypoints=2000)``
+   (K = 2000, the reference's feature count) with ``screen_k_per_slide =
+   512``. Each run must launch ``screen_prefix`` and none of ``screen``,
+   ``screen_strided`` and ``screen_listed``, and give every sampled frame
+   the same candidates through the kernels as through the plain versions;
+   it prints its frames/s and how many assignments differ from phase 5's
+   exact run (not gated: the JAX package records that the trim loses
+   recall, ``slideo_tpu/config.py:215-222``).
 
 ``python3 chip_smoke.py --profiler-check`` runs phases 1 and 2 and then
 only the cross-check of the device-time method: K5's graph-replay device
@@ -131,9 +152,10 @@ that takes patch origins): ptxas's resources and SASS counts, every K3+K4
 case of ``orb_cases``, device ms at the three describe shapes.
 
 Every path (phases 4, 5 screened and pre-vote, 6a, 6b, 7's profile, 8a,
-8b screened and exact, 9's three warm runs) runs with the launch counts set to 0 just before it and read
-just after; a kernel's ``launches`` is its count summed over them, where
-the table launches of 6b are K5 (c)'s and the others K5 (a)'s. Every kernel has two times: call
+8b screened and exact, 9's three warm runs, 10's two runs) runs with the
+launch counts set to 0 just before it and read just after; a kernel's
+``launches`` is its count summed over them, where the table launches of 6b
+are K5 (c)'s and the others K5 (a)'s. Every kernel has two times: call
 ms (``cuda_ms``: one wrapper call between two CUDA events, the wrapper's
 host work included) and device ms (``device_ms``: N calls captured in a
 CUDA graph and replayed between two events, divided by N), and so has the
@@ -954,13 +976,14 @@ def time_table(torch, label: str, query, di, n_slides: int, k: int, slide_ids, s
     return ms, dev
 
 
-def screen_bound(r: int, n_cols: int, n_slots: int, n_read: int) -> dict:
-    """K5 (b) must read the 128-byte prefix and the valid byte of each of
-    ``n_slots`` slots (K / stride in the strided form) of each of the
+def screen_bound(r: int, n_cols: int, n_slots: int, n_read: int, bits: int = 128) -> dict:
+    """K5 (b) must read the ``bits``-byte prefix and the valid byte of each
+    of ``n_slots`` slots (K / stride in the strided form) of each of the
     ``n_read`` distinct slides it scores once, and the queries once, and
-    write [R, n_cols] int32; 2 * 128 int8 operations a (query, slot) pair."""
-    return bound(n_read * n_slots * 129 + r * 128 + r * n_cols * 4,
-                 2 * r * n_cols * n_slots * 128, "int8")
+    write [R, n_cols] int32; 2 * bits int8 operations a (query, slot)
+    pair."""
+    return bound(n_read * n_slots * (bits + 1) + r * bits + r * n_cols * 4,
+                 2 * r * n_cols * n_slots * bits, "int8")
 
 
 def screen_cases(torch, prefixes, per_frame: int, di, n_slides: int, k: int, match) -> list:
@@ -1137,17 +1160,34 @@ def compare_library(src: str, index: int, symbols: tuple, signatures: dict | Non
     return lib, resources, ops
 
 
-# C signature of slideo_screen before its strided and listed forms: query,
-# nq, desc, valid, n_slides, k_per_slide, best, stream.
-SINGLE_SCREEN_SIGNATURE = ("p", "i", "p", "p", "i", "i", "p", "p")
+# (slots, prefix bits) of the per-frame rule's prefix table that phase 10
+# and --compare-screen time on one frame and on 64: a 512-slot trim at 128
+# bits, 64 bits over full K, and both.
+PREFIX_SETTINGS = ((512, 128), (2048, 64), (512, 64))
 
 
-def single_screen_library(lib):
-    """A library whose ``slideo_screen`` takes ``SINGLE_SCREEN_SIGNATURE``,
-    behind the current signature, for single-stage calls only."""
+# C signatures of slideo_screen before its per-frame prefix form: the
+# single stage alone (query, nq, desc, valid, n_slides, k_per_slide, best,
+# stream) and with the strided and listed forms (no n_slots, no prefix).
+EARLIER_SCREEN_SIGNATURES = {
+    "single-stage": ("p", "i", "p", "p", "i", "i", "p", "p"),
+    "no prefix form": ("p", "i", "p", "p", "i", "i", "p", "i", "i", "p", "p"),
+}
+
+
+def earlier_screen_library(lib, form: str):
+    """A library whose ``slideo_screen`` takes the ``form`` signature of
+    ``EARLIER_SCREEN_SIGNATURES``, behind the current signature, for the
+    calls that form takes only."""
     import types
 
-    def slideo_screen(query, nq, desc, valid, k, stride, ids, n_cols, rows_per_group, best, stream):
+    def slideo_screen(query, nq, desc, valid, k, stride, n_slots, prefix, ids, n_cols,
+                      rows_per_group, best, stream):
+        check(n_slots == k // stride and prefix == 128,
+              f"a {form} screen.cu takes no slot count or prefix width")
+        if form == "no prefix form":
+            return lib.slideo_screen(query, nq, desc, valid, k, stride, ids, n_cols,
+                                     rows_per_group, best, stream)
         check(stride == 1 and ids is None and rows_per_group == nq,
               "a single-stage screen.cu takes no stride, row groups or slide lists")
         return lib.slideo_screen(query, nq, desc, valid, n_cols, k, best, stream)
@@ -1157,9 +1197,9 @@ def single_screen_library(lib):
 
 def phase_compare_screen(torch, sources: list[str], seed: int, smi: str) -> None:
     """Versions of csrc/screen.cu side by side: each source (exporting
-    ``slideo_screen`` in the current C signature, or in the earlier
-    single-stage one, ``SINGLE_SCREEN_SIGNATURE``, called through
-    ``single_screen_library``) is built into a library of its own; ptxas's
+    ``slideo_screen`` in the current C signature, or in one of
+    ``EARLIER_SCREEN_SIGNATURES``, called through
+    ``earlier_screen_library``) is built into a library of its own; ptxas's
     registers, spills and shared memory and the SASS counts of IMMA, IDP
     (dp4a), LDSM, LDGSTS and LDS are printed. On a random +-1 index of the
     phase-5 shape (500 slides x 2048 slots, 10% of slots and slide 7
@@ -1167,25 +1207,32 @@ def phase_compare_screen(torch, sources: list[str], seed: int, smi: str) -> None
     each version is held bit-equal on every case of ``screen_cases`` it
     takes (a single-stage source: those of the single stage) and timed at
     64 frames and one frame (and, where it takes them, at the strided and
-    listed 64-frame cases), in turns, forwards then backwards."""
+    listed 64-frame cases), in turns, forwards then backwards. A source
+    with the per-frame prefix form is also held bit-equal and timed on one
+    frame's rows at each of ``PREFIX_SETTINGS``."""
     import ctypes
+    import re
 
     from slideo_tpu_torch import DEFAULT_CONFIG, _kernels
     from slideo_tpu_torch.ops import hamming
 
     ctype = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+    forms = {len(_kernels._SIGNATURES["slideo_screen"]): None,
+             **{len(sig): form for form, sig in EARLIER_SCREEN_SIGNATURES.items()}}
     libs = {}
     for src in sources:
-        single = "const void* slide_ids" not in Path(src).read_text()
-        sig = ({"slideo_screen": tuple(ctype[c] for c in SINGLE_SCREEN_SIGNATURE)} if single
-               else None)
+        # The launcher's C arguments (the stream included) name its form.
+        params = re.search(r'extern "C" int slideo_screen\(([^)]*)\)', Path(src).read_text())
+        form = forms[params.group(1).count(",") + 1]
+        sig = (None if form is None else
+               {"slideo_screen": tuple(ctype[c] for c in EARLIER_SCREEN_SIGNATURES[form])})
         lib, resources, ops = compare_library(src, len(libs), ("slideo_screen",), sig)
         by_kernel = ", ".join(f"{op[7:]} {n}" for op, n in ops.items() if op.startswith("kernel."))
-        print(f"[compare] {src}{' (single-stage signature)' if single else ''}: {resources}; "
+        print(f"[compare] {src}{f' ({form} signature)' if form else ''}: {resources}; "
               f"{sum(n for op, n in ops.items() if '.' not in op)} SASS instructions "
               f"({by_kernel}), "
               + ", ".join(f"{op} {ops[op]}" for op in ("IMMA", "IDP", "LDSM", "LDGSTS", "LDS")))
-        libs[src] = (single_screen_library(lib) if single else lib, single)
+        libs[src] = (lib if form is None else earlier_screen_library(lib, form), form)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     pm1 = lambda *shape: (torch.randint(0, 2, shape, generator=gen, device=dev,  # noqa: E731
@@ -1199,11 +1246,13 @@ def phase_compare_screen(torch, sources: list[str], seed: int, smi: str) -> None
     cases = screen_cases(torch, prefixes, 256, di, n_slides, k, DEFAULT_CONFIG.match)
     by_label = {c[0]: c for c in cases}
     timed = ("64 frames", "one frame", "strided 64 frames", "listed 64 frames")
-    times = {src: {label: [] for label in timed} for src in sources}
+    prefix = [f"one frame, {n} slots, {bits} bits" for n, bits in PREFIX_SETTINGS]
+    times = {src: {label: [] for label in (*timed, *prefix)} for src in sources}
     try:
         for turn, names in enumerate((sources, sources[::-1])):
             for src in names:
-                _kernels._lib, single = libs[src]
+                _kernels._lib, form = libs[src]
+                single = form == "single-stage"
                 print(f"[compare] {src}, turn {turn}")
                 check_screen(torch, cases, src, single_only=single)
                 for label in timed[:2] if single else timed:
@@ -1211,6 +1260,10 @@ def phase_compare_screen(torch, sources: list[str], seed: int, smi: str) -> None
                     _, dev_ms, _ = time_screen(torch, f"{src} {label}", query, di_, n_s, k_, smi,
                                                plain=False, stride=stride, ids=ids)
                     times[src][label].append(dev_ms["kernel"])
+                for label, (n, bits) in zip(prefix if form is None else (), PREFIX_SETTINGS):
+                    case = prefix_case(torch, f"{src} {label}", prefixes[:256], di, n_slides, k,
+                                       n, bits, smi, library=False)
+                    times[src][label].append(case["dev"]["kernel"])
     finally:
         _kernels._lib = None
     for src in sources:
@@ -1318,11 +1371,13 @@ def phase_slice(torch, deck: np.ndarray, runs, seed: int, smi: str, db_dir: Path
     out = drive_engine(torch, DEFAULT_CONFIG, deck, runs, seed, smi, "slice", db_dir=db_dir)
     for name in ("fast", "orb", "table", "warp"):
         check(out["launches"][name] > 0, f"kernel {name} was never launched by the match path")
+    check(out["launches"]["screen_prefix"] == 0, "the exact path launched the per-frame stage 1")
     return out
 
 
 def drive_engine(torch, cfg, deck: np.ndarray, runs, seed: int, smi: str, tag: str,
-                 mesh_devices=None, strict: bool = True, engine=None, db_dir=None) -> dict:
+                 mesh_devices=None, strict: bool = True, engine=None, db_dir=None,
+                 gate: bool = True) -> dict:
     """Index ``deck`` with ``MatchingEngine`` (on a frame-parallel mesh of
     ``mesh_devices`` when given, else on cuda:0 alone, however many cards
     there are), or take ``engine`` as it is, and stream the runs' frames
@@ -1331,10 +1386,12 @@ def drive_engine(torch, cfg, deck: np.ndarray, runs, seed: int, smi: str, tag: s
     ``Db`` (in ``db_dir``, kept, when given), read it back and check it
     against the runs (with ``strict`` False, check only that every changed
     frame got its run's page: dedup may merge runs of near-duplicate
-    slides in the timeline). Returns the launches, the frame -> page rows
-    of every matched frame (the engine's checkpoint rows), the sampled
-    frames by index, the timeline rows, the engine, the build's breakdown,
-    the deck's and the video's hashes and the sampled frames per second."""
+    slides in the timeline; with ``gate`` False, neither). Returns the
+    launches, the frame -> page rows of every matched frame (the engine's
+    checkpoint rows), the sampled frames by index, the timeline rows, the
+    engine, the build's breakdown, the deck's and the video's hashes and
+    the sampled frames per second.
+    """
     from slideo_tpu_torch import _kernels
     from slideo_tpu_torch.app import pipeline
     from slideo_tpu_torch.app.db import Db
@@ -1404,9 +1461,9 @@ def drive_engine(torch, cfg, deck: np.ndarray, runs, seed: int, smi: str, tag: s
     got = [(ms, page if h is not None else None) for ms, h, page in rows]
     print(f"[{tag}] timeline ({len(got)} rows): {got}")
     check(all(h in (pdf_hash, None) for _, h, _ in rows), f"{tag}: rows name a foreign pdf hash")
-    if strict:
+    if gate and strict:
         check(got == want, f"{tag}: timeline differs from the stream's runs: want {want}")
-    else:
+    elif gate:
         assigned = dict(matched)
         first = 0
         resolved = 0
@@ -1485,13 +1542,16 @@ def phase_screened(torch, seed: int, smi: str) -> tuple[list, list, dict, dict]:
         check(screened["launches"][name] > 0, f"kernel {name} was never launched by the screened run")
     check(screened["launches"]["screen_strided"] == screened["launches"]["screen_listed"] == 0,
           "the single-stage screened run went through the pre-vote")
+    check(screened["launches"]["screen_prefix"] == 0,
+          "the batched screened run went through the per-frame stage 1")
 
     # (d): the same frames with screening off (the exact table over 500 slides).
     exact_cfg = dataclasses.replace(
         cfg, match=dataclasses.replace(cfg.match, screen_above_slides=len(deck) + 1)
     )
     exact = drive_engine(torch, exact_cfg, deck, runs, seed, smi, "exact500")
-    check(exact["launches"]["screen"] == 0, "the exact run went through stage-1 screening")
+    check(exact["launches"]["screen"] == exact["launches"]["screen_prefix"] == 0,
+          "the exact run went through stage-1 screening")
     diffs = [(a, b) for a, b in zip(screened["matched"], exact["matched"]) if a != b]
     print(f"[screened] screened vs exact assignments: {len(screened['matched'])} frames, "
           f"{len(diffs)} differences {diffs}")
@@ -1505,7 +1565,8 @@ def phase_screened(torch, seed: int, smi: str) -> tuple[list, list, dict, dict]:
     for name in ("screen_strided", "screen_listed", "table"):
         check(prevote["launches"][name] > 0,
               f"kernel {name} was never launched by the pre-vote run")
-    check(prevote["launches"]["screen"] == 0, "the pre-vote run went through the single stage")
+    check(prevote["launches"]["screen"] == prevote["launches"]["screen_prefix"] == 0,
+          "the pre-vote run went through the single stage or the per-frame rule")
     diffs = [(a, b) for a, b in zip(prevote["matched"], exact["matched"]) if a != b]
     print(f"[prevote] pre-vote vs exact assignments: {len(prevote['matched'])} frames, "
           f"{len(diffs)} differences {diffs}; frames/s pre-vote on {prevote['fps']:.2f}, off "
@@ -2052,6 +2113,162 @@ def phase_cache(torch, seed: int, smi: str, work: Path, slice_deck: np.ndarray, 
     return [r["launches"] for r in runs]
 
 
+def prefix_case(torch, label: str, query, di, n_slides: int, k: int, n_slots: int, bits: int,
+                smi: str, library: bool = True) -> dict:
+    """One case of the per-frame rule's prefix table: the kernel that
+    ``hamming.screen_slides_frame`` launches at ``bits`` (K5 (b)'s prefix
+    form up to 128 bits; K5 (a) over the first ``n_slots`` slots above, the
+    query zero past the prefix, ``best`` only) held bit-equal to its plain
+    version on ``query[:, :bits]`` over the first ``n_slots`` slots of each
+    of the ``n_slides`` slides, then timed: call ms of both, device ms of
+    the kernel and, with ``library``, call and device ms of
+    ``torch._int_mm`` of the product alone (the query zero-padded to the
+    kernel's width, the slots' prefixes gathered into a contiguous copy
+    outside the timing; no mask, no max), which the port never calls.
+    Returns the case's numbers (``ms``, ``dev``, ``cost``, ``err``, a
+    summary)."""
+    import torch.nn.functional as F
+
+    from slideo_tpu_torch.ops import cuda_screen, cuda_table
+
+    q = query[:, :bits].contiguous()
+    if bits <= cuda_screen.SCREEN_BITS:
+        source, width = "screen.cu", 64 if bits <= 64 else 128
+        kernel = lambda: cuda_screen.screen_scores(  # noqa: E731
+            q, di.desc, di.valid, n_slides, k, n_slots=n_slots)
+        plain = lambda: cuda_screen.screen_scores_plain(  # noqa: E731
+            q, di.desc, di.valid, n_slides, k, n_slots=n_slots)
+    else:
+        source, width = "table.cu", 256
+        qp = F.pad(q, (0, width - bits))
+        kernel = lambda: cuda_table.match_table_scores(  # noqa: E731
+            qp, di.desc, di.valid, n_slides, k, n_slots=n_slots)[0]
+        plain = lambda: cuda_table.match_table_scores_plain(  # noqa: E731
+            qp, di.desc, di.valid, n_slides, k, n_slots=n_slots)[0]
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    same = torch.equal(got, want)
+    err = float((got.float() - want.float()).abs().max())
+    print(f"[K5 prefix] {label}: {source}, query {tuple(q.shape)} x {n_slides} slides x the "
+          f"first {n_slots} of {k} slots: bit-equal {same}")
+    check(same, f"the per-frame prefix table ({source}, {label}) is not bit-equal to its plain "
+                "version")
+    fns = {"kernel": kernel, "plain": plain}
+    if library:
+        lq = F.pad(q, (0, width - bits))
+        pre_t = di.desc.view(n_slides, k, -1)[:, :n_slots, :width].reshape(-1, width).contiguous().T
+        fns["library"] = lambda: torch._int_mm(lq, pre_t)
+    ms = cuda_ms(fns, reps=5)
+    dev = device_ms({n: f for n, f in fns.items() if n != "plain"}, ms, reps=5)
+    cost = screen_bound(q.shape[0], n_slides, n_slots, n_slides, bits)
+    lib = (f"; torch._int_mm call {ms['library']:.4f} ms, device {dev['library']:.4f} ms"
+           if library else "")
+    print(f"[time] prefix table {label}: kernel call {ms['kernel']:.4f} ms, device "
+          f"{dev['kernel']:.4f} ms; plain {ms['plain']:.4f} ms{lib}; bound {cost['bound_ms']:.4f} "
+          f"ms ({cost['bound_by']}) ({smi})")
+    summary = dict(case=label, source=f"slideo_tpu_torch/csrc/{source}", rows=q.shape[0],
+                   n_slots=n_slots, prefix_bits=bits, max_abs_err=err, ms=ms["kernel"],
+                   device_ms=dev["kernel"], plain_ms=ms["plain"], **cost,
+                   library_ms=ms.get("library"), library_device_ms=dev.get("library"))
+    return dict(ms=ms, dev=dev, cost=cost, err=err, summary=summary)
+
+
+def frame_queries(torch, frame, cfg):
+    """A frame's per-frame stage-1 query rows, as ``screen_slides_frame``
+    picks them: its features at its query bucket, the ``screen_queries``
+    rows of highest raw score, full width."""
+    from slideo_tpu_torch.models import orb_matcher
+    from slideo_tpu_torch.ops import top_k
+
+    feats, _ = orb_matcher._frame_features(torch.from_numpy(frame).to("cuda"), cfg)
+    return feats.desc[top_k(feats.score, min(cfg.match.screen_queries, feats.desc.shape[0]))[1]]
+
+
+def phase_frame_screen(torch, seed: int, smi: str, screened: dict,
+                       exact_matched: list) -> tuple[dict, list[dict]]:
+    """Phase 10: the per-frame stage-1 rule. (a) Its prefix table against
+    the plain version on phase 5's index and on the adversarial index at K =
+    1000; (b) the engine on phase 5's deck and frames at 64-bit prefixes and
+    at K = 2000 trimmed to 512 slots. Returns the kernel row of the prefix
+    form and the two runs' launches."""
+    import dataclasses
+
+    from slideo_tpu_torch import DEFAULT_CONFIG
+    from slideo_tpu_torch.models import orb_matcher
+    from slideo_tpu_torch.ops import cuda_screen, cuda_table, hamming
+
+    cfg = DEFAULT_CONFIG
+    dev = torch.device("cuda")
+    deck, runs = screened["deck"], screened["runs"]
+    index = screened["engine"].index
+    di = index.desc_index
+    n_slides, kps_per = index.pts.shape[0], index.pts.shape[1]
+    frames = [f for _, fs in runs for f in fs]
+    many = torch.cat([frame_queries(torch, f, cfg) for f in frames[:cfg.video.batch_size]])
+    one = many[:cfg.match.screen_queries]
+    n_many = many.shape[0] // cfg.match.screen_queries
+    cases = {}
+    for n_slots, bits in PREFIX_SETTINGS:
+        for label, q in (("one frame", one), (f"{n_many} frames", many)):
+            cases[f"{label}, {n_slots} slots, {bits} bits"] = prefix_case(
+                torch, f"{label}, {n_slots} slots, {bits} bits", q, di, n_slides, kps_per,
+                n_slots, bits, smi, library=q is one)
+    query, desc, valid, _ = adversarial_table(3, k=1000)
+    adv = hamming.build_index(torch.from_numpy(desc).to(dev), torch.from_numpy(valid).to(dev))
+    aq = torch.from_numpy(query).to(dev)
+    for n_slots, bits in ((512, 128), (1000, 64), (333, 100), (512, 200)):
+        label = f"adversarial K=1000, {n_slots} slots, {bits} bits"
+        cases[label] = prefix_case(torch, label, aq, adv, desc.shape[0], 1000, n_slots, bits, smi)
+    main_case = cases["one frame, 512 slots, 128 bits"]
+    row = kernel_row("screen_prefix", "screen.cu", "slideo_tpu/ops/hamming.py:288",
+                     max(c["err"] for c in cases.values()), main_case["ms"], main_case["dev"],
+                     main_case["cost"], cases=[c["summary"] for c in cases.values()])
+    print_row(row, smi)
+    del many, adv
+
+    exact = dict(exact_matched)
+    settings = {
+        "frame64": dataclasses.replace(
+            cfg, match=dataclasses.replace(cfg.match, screen_bits=64)),
+        "frame2000": dataclasses.replace(
+            cfg, orb=dataclasses.replace(cfg.orb, max_keypoints=2000),
+            match=dataclasses.replace(cfg.match, screen_k_per_slide=512)),
+    }
+    launches = []
+    for tag, run_cfg in settings.items():
+        out = drive_engine(torch, run_cfg, deck, runs, seed, smi, tag, gate=False)
+        got = out["launches"]
+        check(got["screen_prefix"] > 0 and got["table"] > 0,
+              f"{tag}: the per-frame rule's kernels were not launched")
+        check(got["screen"] == got["screen_strided"] == got["screen_listed"] == 0,
+              f"{tag}: the run went through the batched rule")
+        index = out["engine"].index
+        k = index.pts.shape[1]
+        check(k == run_cfg.orb.max_keypoints, f"{tag}: K = {k}")
+        same = 0
+        for f in frames:
+            feats, _ = orb_matcher._frame_features(torch.from_numpy(f).to(dev), run_cfg)
+            args = (feats.desc, feats.score, index.desc_index, n_slides, k, run_cfg.match)
+            cand = hamming.screen_slides_frame(*args)
+            hamming.screen_scores = cuda_screen.screen_scores_plain
+            hamming.match_table_scores = cuda_table.match_table_scores_plain
+            try:
+                plain = hamming.screen_slides_frame(*args)
+            finally:
+                hamming.screen_scores = cuda_screen.screen_scores
+                hamming.match_table_scores = cuda_table.match_table_scores
+            same += torch.equal(cand, plain)
+        diffs = [(i, page, exact.get(i)) for i, page in out["matched"] if exact.get(i) != page]
+        print(f"[{tag}] per-frame candidates, kernels == plain versions on {same} of "
+              f"{len(frames)} frames; {out['fps']:.2f} frames/s; {len(diffs)} of "
+              f"{len(out['matched'])} assignments differ from phase 5's exact run {diffs} ({smi})")
+        check(same == len(frames), f"{tag}: the kernels' candidates differ from the plain "
+                                   "versions'")
+        launches.append(got)
+        del out, index
+    return row, launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the synthetic deck and stream")
@@ -2097,24 +2314,28 @@ def main() -> None:
         screen_rows, screened_launches, exact, screened = phase_screened(torch, args.seed, smi)
         shard_row, dp_launches, ip_launches = phase_mesh(
             torch, deck, runs, args.seed, smi, slice_out, exact)
+        exact_matched = exact["matched"]
         del exact
         k2_row, profile_launches = phase_fast_batch(torch, deck, runs, args.seed, smi)
         sift_launches, sift64 = phase_sift(torch, deck, args.seed, smi)
         cache_launches = phase_cache(torch, args.seed, smi, work, deck, runs, slice_out, screened,
                                      sift64, work / "db")
+        prefix_row, frame_launches = phase_frame_screen(torch, args.seed, smi, screened,
+                                                        exact_matched)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    rows += [*screen_rows, shard_row, k2_row]
+    rows += [*screen_rows, shard_row, k2_row, prefix_row]
     # Each kernel's launches over every path of this run; the table
     # launches of the index-parallel step are K5 (c)'s.
     paths = [slice_out["launches"], *screened_launches, dp_launches, ip_launches, profile_launches,
-             *sift_launches, *cache_launches]
+             *sift_launches, *cache_launches, *frame_launches]
     counted = {name: sum(p[name] for p in paths) for name in paths[0]}
     counted["table"] -= ip_launches["table"]
     by_name = {"fast_nms": "fast", "orb_describe": "orb", "match_table": "table",
                "warp_sample": "warp", "screen_scores": "screen", "fast_nms_batch": "fast_batch",
                "warp_sample_homography": "warp_homography",
-               "screen_prevote_strided": "screen_strided", "screen_prevote_listed": "screen_listed"}
+               "screen_prevote_strided": "screen_strided", "screen_prevote_listed": "screen_listed",
+               "screen_prefix": "screen_prefix"}
     for r in rows:
         r["launches"] = (ip_launches["table"] if r["name"] == "match_table_shard"
                          else counted[by_name[r["name"]]])

@@ -48,11 +48,12 @@ _SIGNATURES = {
     # atlas, h, w, y, x, level, level_table, n_levels, k, heads, weights, bins,
     # out, stream
     "slideo_orb_describe": (_P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P),
-    # query, q, desc, valid, n_slides, n_cols, k_per_slide, slide_list, best, arg, stream
-    "slideo_match_table": (_P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P),
-    # query, q, desc, valid, k_per_slide, stride, slide_ids, n_cols,
-    # rows_per_group, best, stream
-    "slideo_screen": (_P, _I, _P, _P, _I, _I, _P, _I, _I, _P, _P),
+    # query, q, desc, valid, n_slides, n_cols, k_per_slide, n_slots, slide_list, best,
+    # arg, stream
+    "slideo_match_table": (_P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
+    # query, q, desc, valid, k_per_slide, stride, n_slots, prefix, slide_ids,
+    # n_cols, rows_per_group, best, stream
+    "slideo_screen": (_P, _I, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P),
     # img, h, w, a, b, tx, ty, n_t, sx, sy, inv_fx, inv_fy, out_h, out_w,
     # stride, out, stream
     "slideo_warp_sample": (_P, _I, _I, _P, _P, _P, _P, _I, _F, _F, _F, _F, _I, _I, _I, _P, _P),
@@ -63,7 +64,7 @@ _SIGNATURES = {
 
 launches: dict[str, int] = {
     "fast": 0, "fast_batch": 0, "orb": 0, "table": 0, "screen": 0, "screen_strided": 0,
-    "screen_listed": 0, "warp": 0, "warp_homography": 0,
+    "screen_listed": 0, "screen_prefix": 0, "warp": 0, "warp_homography": 0,
 }
 
 _lib: ctypes.CDLL | None = None

@@ -15,10 +15,10 @@ kernels (``fast_polarity_fused``, ``fast_chunk_w``, ``fast_sparse_skip``,
 ``fast_min_first``, ``describe_pass2``, ``cascade_viable_prefix``,
 ``knn_chunk``) are kept for the equal field set; the port reads none of
 them (no ``fast_sparse_skip``: kernel K1's compass pretest is exact and
-always runs). Options the port does not run raise ``NotImplementedError``
-where they are read: ``screen_bits`` other than 128,
-``screen_k_per_slide`` below the deck's keypoints per slide on the per-frame
-screened path. ``MatchConfig``
+always runs). Every option of the JAX package runs: ``screen_bits`` other
+than 128 and ``screen_k_per_slide`` below the deck's keypoints per slide
+take the per-frame stage-1 rule, as in the JAX package
+(``models/orb_matcher.match_frames``). ``MatchConfig``
 refuses ``screen_prevote`` with more ``screen_slides`` than
 ``screen_prevote_slides`` (a ``ValueError``): the re-vote cannot return
 more candidates than the pre-vote kept, and the JAX package fails there
@@ -104,8 +104,12 @@ class MatchConfig:
     screen_above_slides: int = 96   # screen when the deck has more slides than this
     screen_slides: int = 16         # candidate slides surviving stage 1
     screen_bits: int = 128          # descriptor prefix bits of the stage-1 vote
+                                    # (the batched rule reads 128 whatever this
+                                    # says; another value takes the per-frame rule)
     screen_queries: int = 256       # strongest frame keypoints used for screening
-    screen_k_per_slide: int = 2048  # index slots per slide the vote reads (full K)
+    screen_k_per_slide: int = 2048  # index slots per slide the per-frame vote
+                                    # reads (full K; a 512-slot trim loses recall,
+                                    # slideo_tpu/config.py:215-222)
     # Strided pre-vote before the full-K vote (off by default): the
     # strongest screen_prevote_queries prefixes vote over every
     # screen_prevote_k_stride-th slot and keep screen_prevote_slides slides,

@@ -1,31 +1,42 @@
-// K5 (mode b): stage-1 screening scores, the best 128-bit prefix dot product
+// K5 (mode b): stage-1 screening scores, the best P-byte prefix dot product
 // of every (query, slide), on the int8 tensor cores.
 //
 // Replaces slideo_tpu/ops/pallas_table.py:match_table_scores_pallas in its
-// int8 / transposed / max-only / skip_bias mode, at the three call sites of
-// slideo_tpu/ops/hamming.py:screen_slides_batched: the single-stage sweep
-// (:595), the strided pre-vote (:564) and the re-vote over each frame's own
-// slide list (:584). Contract, bit-equal to those calls on the index's
-// screening tensor (and to the gathered sub-tensors of :572-586):
+// int8 / transposed / max-only modes, at four call sites of
+// slideo_tpu/ops/hamming.py: the batched rule's single-stage sweep (:595),
+// its strided pre-vote (:564) and its re-vote over each frame's own slide
+// list (:584), all at 128-bit prefixes over full K; and the per-frame rule
+// (_screen_slides, :733-782), which reaches the table call at :288 with
+// the prefix index desc_t[:, :screen_bits, :ksk] (D = screen_bits, K =
+// ksk = min(screen_k_per_slide, K)). Contract, bit-equal to those calls on
+// the index's screening tensor (and to the gathered sub-tensors of
+// :572-586 and :762-773):
 //   slide(g, c)       = slide_ids ? slide_ids[g, c] : c
-//   score[r, c, j]    = valid[s*K + j*stride] ? <query[r, :128], desc[s*K + j*stride, :128]> : -254
-//                       with s = slide(r / rows_per_group, c), j < K / stride
+//   score[r, c, j]    = valid[s*K + j*stride] ? <query[r, :P], desc[s*K + j*stride, :P]> : -254
+//                       with s = slide(r / rows_per_group, c), j < n_slots
 //   best[r, c]        = max_j score   (int32, exact)
-// One group (rows_per_group = R), stride 1 and no list is the single stage;
-// stride 4 over every slide is the pre-vote; groups of a frame's rows, each
-// against its own P listed slides, is the re-vote.
+// P is 128 or 64 bytes (a prefix of another width up to 128 runs at the next
+// of the two with the query's columns past it zero, which adds nothing to a
+// dot) and n_slots <= K / stride. One group (rows_per_group = R), stride 1,
+// no list, n_slots = K and P = 128 is the batched single stage; stride 4
+// over every slide is the pre-vote; groups of a frame's rows, each against
+// its own P listed slides, is the re-vote; one group over the first n_slots
+// slots of every slide at P = 64 or 128 is the per-frame rule.
 // The TPU kernel reads a second copy of the index, screen_desc [S, 160, K]:
 // the 128 prefix rows plus two -127 validity rows that meet two +1 query
 // columns, so an invalid slot scores exactly -254 inside the contraction;
 // the pre-vote slices its slot axis with a stride and the re-vote gathers
-// each frame's P slides into a copy. This kernel reads the prefix in place
-// instead: the first 128 bytes of each 256-byte row of the port's
-// row-major desc [S*K, 256], and valid [S*K], at the rows a column names,
-// with no copy. A dot lies in [-128, 128], so a slide with a valid slot has
-// its best among the valid slots and one with none scores -254: the running
-// max takes valid slots only, and a max that took none is written as -254.
-// Invalid query rows are all zero and score 0 against every valid slot, as
-// on the TPU (int8 keeps them exact; packed bits would not).
+// each frame's P slides into a copy. The per-frame rule's call adds a bias
+// of -1e6 on invalid slots instead, which changes only the best of a slide
+// with no valid slot among its first n_slots, a slide its vote masks. This
+// kernel reads the prefix in place instead: the first P bytes of each
+// 256-byte row of the port's row-major desc [S*K, 256], and valid [S*K], at
+// the rows a column names, with no copy. A dot lies in [-128, 128], so a
+// slide with a valid slot has its best among the valid slots and one with
+// none scores -254: the running max takes valid slots only, and a max that
+// took none is written as -254. Invalid query rows are all zero and score 0
+// against every valid slot, as on the TPU (int8 keeps them exact; packed
+// bits would not).
 //
 // What bounds it on the card: 2*R*S*K*128 int8 operations (4.3 T at
 // R = 64 frames x 256 queries, S = 500, K = 2048: 2.17 ms at 1,979 TOP/s)
@@ -36,38 +47,52 @@
 // reads R/QT * S * K * 128 B from L2 per call (8.4 GB at QT = 256, R =
 // 16,384; 33 GB at the earlier 64-query tile). (2) Shared-memory reads: a
 // B fragment read by ldmatrix feeds as many mma as the warp holds query
-// tiles of 16 rows.
+// tiles of 16 rows. One frame of the per-frame rule (R = 256) is bound by
+// its bytes instead: S*n_slots*(P+1), 33.0 MB at 500 x 512 slots x 128 B
+// (0.0099 ms) and 66.6 MB at 500 x 2048 x 64 B (0.020 ms).
 // Design: one block of 4 warps per (256-query tile, column), query tiles
 // fastest in launch order, so the blocks of one slide run together and its
 // prefixes come from device memory once (a column is a slide, or in the
 // listed form the slide that the tile's group lists there). One frame (R = 256) is one tile
 // and gives 500 blocks. Each warp holds 64 query rows, the most that fit,
 // as A fragments of mma.sync m16n8k32 s8 in registers (4 m-tiles x 4
-// k-steps x 4 = 64 registers, loaded once from global memory), so each
-// ldmatrix_x4 of slot data (8 slots x 2 k-steps) feeds 8 mma. The slide's
-// prefixes stream through a 4-stage ring of 64-slot tiles by cp.async.cg
-// 16-byte copies (8 a row at the 256-byte row stride; slots past the
-// slide's end zero-filled), into rows padded to 144 B so that the 8 rows
-// of an ldmatrix hit 8 distinct bank groups. Every warp multiplies its rows
-// with all 64 slots of a tile, 16 slots at a time as 8 independent
-// accumulator chains (2 slot groups x 4 m-tiles) of 4 k-steps. Validity
-// comes as two 32-bit ballots a tile (each lane loads 2 bytes one tile
-// ahead); slots past the slide's end count as invalid, so the zero-filled
-// rows of a ragged last tile never enter the max. Each thread folds its
-// accumulators into a running max of its 8 rows; a quad shuffle finishes
-// the max and only [R, S] is written. An int32 max is exact in any order.
+// k-steps x 4 = 64 registers at P = 128, loaded once from global memory),
+// so each ldmatrix_x4 of slot data (8 slots x 2 k-steps) feeds 8 mma. The
+// slide's prefixes stream through a 4-stage ring of 64-slot tiles by
+// cp.async.cg 16-byte copies (P / 16 a row at the 256-byte row stride;
+// slots past n_slots zero-filled), into rows padded to P + 16 bytes (144 B
+// at P = 128, 80 B at P = 64) so that the 8 rows of an ldmatrix start at
+// 16-byte units 9i resp. 5i mod 8, 8 distinct bank groups. Every warp
+// multiplies its rows with all 64 slots of a tile, 16 slots at a time as 8
+// independent accumulator chains (2 slot groups x 4 m-tiles) of P / 32
+// k-steps. Validity comes as two 32-bit ballots a tile (each lane loads 2
+// bytes one tile ahead); slots at or past n_slots count as invalid, so the
+// zero-filled rows of a ragged last tile never enter the max. Each thread
+// folds its accumulators into a running max of its 8 rows; a quad shuffle
+// finishes the max and only [R, S] is written. An int32 max is exact in
+// any order. The body is a template on the k-steps a row has (P / 32): at
+// P = 64 a warp holds half the A-fragment registers (32) and a tile half
+// the copies.
 // ptxas gives 128 registers and no spill, so 4 blocks (16 warps) fit an
 // SM. A 512-query tile (8 warps) at R >= 8,192, which halves the L2 reads,
 // measured no faster: 5.07-5.10 device ms against this tile's 4.98-4.99 at
 // R = 16,384 (chip_smoke.py --compare-screen, NVIDIA H100 80GB HBM3,
 // 700.00 W), so the L2 traffic does not bind at this tile.
-// The pre-vote and the re-vote run the same body (screen_body<true>) in a
-// kernel of their own, which reads the stride, the row groups and the
-// slide list; the single stage's kernel has them as constants and keeps
-// its 1,344 SASS instructions and 128 registers (PERF.md gives its time
-// beside that of the kernel before these forms). Strided: the ring
-// copies rows s*K + j*stride (128 of every stride * 256 bytes) and the
-// ballots read validity at the same rows; slots past K / stride count as
+// The other forms run the same body (screen_body<true, *>) in kernels of
+// their own, which read the stride, the row groups, the slide list and
+// (the prefix form) the slot count; the single stage's kernel has them as
+// constants and keeps its 1,344 SASS instructions and 128 registers
+// (PERF.md gives its time beside that of the kernel before these forms).
+// The strided and listed forms share screen_general_kernel; the per-frame
+// rule's trimmed or 64-byte prefix has screen_prefix_kernel<P / 32>. One
+// kernel for all three, the slot count a parameter, moved ptxas's spills
+// in the strided and listed forms and slowed them by 4-7% (0.7742-0.7907
+// and 0.7781-0.7973 device ms against the parent's 0.7347-0.7561 and
+// 0.7420-0.7571 in the same calls; chip_smoke.py --compare-screen, NVIDIA
+// H100 80GB HBM3, 700.00 W); with a kernel of their own they keep their
+// code (1,560 SASS instructions, 72 B spill). Strided: the ring
+// copies rows s*K + j*stride (P of every stride * 256 bytes) and the
+// ballots read validity at the same rows; slots past n_slots count as
 // invalid. Listed: a block's query tile lies inside one group (tiles are
 // counted per group, ceil(rows_per_group / 256), and rows past the
 // group's end are zero and not written), so a frame's rows never meet
@@ -88,21 +113,16 @@
 namespace {
 
 constexpr int ROW = 256;               // bytes of an index row
-constexpr int PREFIX = 128;            // bytes read of each index row and query row
-constexpr int LDS = PREFIX + 16;       // padded shared-memory row (bytes)
-constexpr int CHUNKS = PREFIX / 16;    // 16-byte copies per row
-constexpr int KSTEPS = PREFIX / 32;    // mma k-steps of 32 bytes
 constexpr int WARP_ROWS = 64;          // query rows a warp holds as A fragments
 constexpr int MT = WARP_ROWS / 16;     // m16 tiles of a warp
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 constexpr int QT = WARPS * WARP_ROWS;  // queries per block
 constexpr int NT = 64;                 // slots per ring stage: two per lane of a ballot
-constexpr int STAGES = 4;              // 4 x 64 x 144 B = 36,864 B of static shared memory
+constexpr int STAGES = 4;              // 4 x 64 x 144 B = 36,864 B of static shared memory at P = 128
 constexpr int NG = 2;                  // 8-slot groups multiplied between two folds
 constexpr int INVALID = -254;          // two -127 validity rows x two +1 columns
 constexpr int kIntMin = -2147483647 - 1;
-static_assert(NT * CHUNKS % THREADS == 0, "a tile is whole copies of every thread");
 
 // Bit 0: slot k0 + 2 * lane is valid; bit 1: slot k0 + 2 * lane + 1. Slot j
 // is row j * step of the slide; slots past n_slots are not valid.
@@ -115,14 +135,22 @@ __device__ __forceinline__ int lane_valid(const uint8_t* __restrict__ vslide, in
   return v;
 }
 
-// The kernel body. kGeneral false: the single stage (stride 1, one group of
-// nq rows, column = slide); the other arguments are not read.
-template <bool kGeneral>
+// The kernel body over prefixes of kKsteps mma k-steps (P = 32 * kKsteps
+// bytes, the query's row length). kGeneral false: the single stage (stride
+// 1, one group of nq rows, column = slide, n_slots = K); the other
+// arguments are not read.
+template <bool kGeneral, int kKsteps>
 __device__ __forceinline__ void screen_body(
     const int8_t* __restrict__ query, int nq, const int8_t* __restrict__ desc,
-    const uint8_t* __restrict__ valid, int k_per_slide, int stride,
+    const uint8_t* __restrict__ valid, int k_per_slide, int stride, int slots,
     const int* __restrict__ slide_ids, int n_cols, int rows_per_group, int tiles_per_group,
     int* __restrict__ best_out) {
+  constexpr int PREFIX = 32 * kKsteps;   // bytes read of each index row and query row
+  constexpr int LDS = PREFIX + 16;       // padded shared-memory row (bytes)
+  constexpr int CHUNKS = PREFIX / 16;    // 16-byte copies per row
+  constexpr int KSTEPS = kKsteps;
+  static_assert(NT * CHUNKS % THREADS == 0, "a tile is whole copies of every thread");
+  static_assert(KSTEPS % 2 == 0, "an ldmatrix_x4 reads two k-steps");
   __shared__ __align__(128) uint8_t ring[STAGES][NT][LDS];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;   // mma fragment coordinates
@@ -133,7 +161,7 @@ __device__ __forceinline__ void screen_body(
     qtile = blockIdx.x - group * tiles_per_group;
     n_rows = rows_per_group;
     step = stride;
-    n_slots = k_per_slide / stride;
+    n_slots = slots;
     if (slide_ids != nullptr) slide = __ldg(slide_ids + (int64_t)group * n_cols + col);
   }
   const int64_t row0 = (int64_t)slide * k_per_slide;
@@ -256,7 +284,8 @@ __global__ void __launch_bounds__(THREADS)
 screen_kernel(const int8_t* __restrict__ query, int nq, const int8_t* __restrict__ desc,
               const uint8_t* __restrict__ valid, int n_slides, int k_per_slide,
               int* __restrict__ best_out) {
-  screen_body<false>(query, nq, desc, valid, k_per_slide, 1, nullptr, n_slides, nq, 0, best_out);
+  screen_body<false, 4>(query, nq, desc, valid, k_per_slide, 1, k_per_slide, nullptr, n_slides,
+                        nq, 0, best_out);
 }
 
 // The strided and listed forms. Left free, ptxas gives this body 178
@@ -269,32 +298,59 @@ screen_general_kernel(const int8_t* __restrict__ query, int nq, const int8_t* __
                       const uint8_t* __restrict__ valid, int k_per_slide, int stride,
                       const int* __restrict__ slide_ids, int n_cols, int rows_per_group,
                       int tiles_per_group, int* __restrict__ best_out) {
-  screen_body<true>(query, nq, desc, valid, k_per_slide, stride, slide_ids, n_cols,
-                    rows_per_group, tiles_per_group, best_out);
+  screen_body<true, 4>(query, nq, desc, valid, k_per_slide, stride, k_per_slide / stride,
+                       slide_ids, n_cols, rows_per_group, tiles_per_group, best_out);
+}
+
+// The per-frame rule's prefix form, at P = 128 (kKsteps 4) or 64 (2): the
+// same body over the first n_slots slots, in a kernel of its own, so that
+// the strided and listed forms keep their code. ptxas: 128 registers and a
+// 48 B spill at P = 128, an 8 B spill at P = 64 (20,480 B shared memory).
+template <int kKsteps>
+__global__ void __launch_bounds__(THREADS, 4)
+screen_prefix_kernel(const int8_t* __restrict__ query, int nq, const int8_t* __restrict__ desc,
+                     const uint8_t* __restrict__ valid, int k_per_slide, int stride, int n_slots,
+                     const int* __restrict__ slide_ids, int n_cols, int rows_per_group,
+                     int tiles_per_group, int* __restrict__ best_out) {
+  screen_body<true, kKsteps>(query, nq, desc, valid, k_per_slide, stride, n_slots, slide_ids,
+                             n_cols, rows_per_group, tiles_per_group, best_out);
 }
 
 }  // namespace
 
-// query [nq, 128] int8; desc [n_slides * k_per_slide, 256] int8, both
-// 16-byte aligned; valid [n_slides * k_per_slide] uint8; k_per_slide a
-// multiple of stride; slide_ids: [nq / rows_per_group, n_cols] int32 slide
-// ids, or null for columns 0..n_cols-1 (n_cols = n_slides) in every group;
-// nq a multiple of rows_per_group; best [nq, n_cols] int32.
+// query [nq, prefix] int8, prefix 64 or 128; desc [n_slides * k_per_slide,
+// 256] int8, both 16-byte aligned; valid [n_slides * k_per_slide] uint8;
+// k_per_slide a multiple of stride; 1 <= n_slots <= k_per_slide / stride;
+// slide_ids: [nq / rows_per_group, n_cols] int32 slide ids, or null for
+// columns 0..n_cols-1 (n_cols = n_slides) in every group; nq a multiple of
+// rows_per_group; best [nq, n_cols] int32. Another prefix or slot count
+// returns cudaErrorInvalidValue.
 extern "C" int slideo_screen(const void* query, int nq, const void* desc, const void* valid,
-                             int k_per_slide, int stride, const void* slide_ids, int n_cols,
-                             int rows_per_group, void* best, void* stream) {
+                             int k_per_slide, int stride, int n_slots, int prefix,
+                             const void* slide_ids, int n_cols, int rows_per_group, void* best,
+                             void* stream) {
+  if ((prefix != 64 && prefix != 128) || stride < 1 || n_slots < 1 ||
+      n_slots > k_per_slide / stride)
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto q = static_cast<const int8_t*>(query);
   const auto d = static_cast<const int8_t*>(desc);
   const auto v = static_cast<const uint8_t*>(valid);
+  const auto ids = static_cast<const int*>(slide_ids);
   const auto out = static_cast<int*>(best);
   const auto st = static_cast<cudaStream_t>(stream);
   const int tiles = (rows_per_group + QT - 1) / QT;
   const dim3 grid(tiles * (nq / rows_per_group), n_cols);
-  if (stride == 1 && slide_ids == nullptr && rows_per_group == nq)
+  if (prefix == 128 && stride == 1 && slide_ids == nullptr && rows_per_group == nq &&
+      n_slots == k_per_slide)
     screen_kernel<<<grid, THREADS, 0, st>>>(q, nq, d, v, n_cols, k_per_slide, out);
-  else
-    screen_general_kernel<<<grid, THREADS, 0, st>>>(q, nq, d, v, k_per_slide, stride,
-                                                    static_cast<const int*>(slide_ids), n_cols,
+  else if (prefix == 128 && n_slots == k_per_slide / stride)
+    screen_general_kernel<<<grid, THREADS, 0, st>>>(q, nq, d, v, k_per_slide, stride, ids, n_cols,
                                                     rows_per_group, tiles, out);
+  else if (prefix == 128)
+    screen_prefix_kernel<4><<<grid, THREADS, 0, st>>>(q, nq, d, v, k_per_slide, stride, n_slots,
+                                                      ids, n_cols, rows_per_group, tiles, out);
+  else
+    screen_prefix_kernel<2><<<grid, THREADS, 0, st>>>(q, nq, d, v, k_per_slide, stride, n_slots,
+                                                      ids, n_cols, rows_per_group, tiles, out);
   return static_cast<int>(cudaGetLastError());
 }

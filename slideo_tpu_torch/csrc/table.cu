@@ -5,16 +5,20 @@
 // int8 / transposed / with-argmax mode (_kernel_t), the exact match table of
 // decks up to screen_above_slides, and stage 2 of screened decks over a
 // frame's candidate slides; launched on an index shard it serves the
-// non-transposed mode (c) of the index-parallel step. Contract, bit-equal to
-// ops/hamming.match_table:
+// non-transposed mode (c) of the index-parallel step. Over the first n_slots
+// slots of each slide it also serves the per-frame stage-1 rule's table
+// (hamming.py:288 reached from _screen_slides, :774) at a prefix of 128 <
+// screen_bits <= 256 bits, the query zero past the prefix and arg unread.
+// Contract, bit-equal to ops/hamming.match_table (at n_slots = K):
 //   slide(c)       = slide_list ? slide_list[c] : c     (column c of the table)
 //   score[q, c, k] = valid[s*K + k] ? <query[q], desc[s*K + k]> : -2^30,
-//                    s = slide(c)
+//                    s = slide(c), k < n_slots <= K (the row stride)
 //   best[q, c]     = max_k score   (as float32; exact, |score| <= 2^30)
 //   arg[q, c]      = the FIRST k attaining it (XLA's argmax; Mosaic's is last)
 // The slide list replaces the JAX package's sub-index copy
-// (hamming.sub_index_for_slides): the kernel reads the candidate slides'
-// rows in place.
+// (hamming.sub_index_for_slides), and the slot count its prefix index
+// (hamming.py:762-773): the kernel reads the candidate slides' rows, and
+// the first n_slots of them, in place.
 // Descriptors are +-1 int8 and invalid query rows are all zero, so a dot is
 // an exact small integer. XOR+popcount on packed bits is not used: packed
 // bits cannot represent the zero rows.
@@ -64,14 +68,14 @@ constexpr int NEG = -(1 << 30);        // invalid-slot score (hamming._NEG)
 constexpr int kIntMin = -2147483647 - 1;
 constexpr int NG = NT / 2 / 8;         // 8-slot groups of a warp's half stage
 constexpr int BIAS = 512;              // added to every dot: keys of valid slots stay > 0
-constexpr int SLOT_MASK = 0xFFFF;      // slots (k_per_slide + NT - 1 of them) fit 16 bits
-constexpr int MAX_K_PER_SLIDE = SLOT_MASK + 1 - (NT - 1);
+constexpr int SLOT_MASK = 0xFFFF;      // slots (n_slots + NT - 1 of them) fit 16 bits
+constexpr int MAX_SLOTS = SLOT_MASK + 1 - (NT - 1);
 constexpr int kMaxDevices = 64;
 
 __global__ void __launch_bounds__(THREADS)
 match_table_kernel(const int8_t* __restrict__ query, int nq, const int8_t* __restrict__ desc,
                    const uint8_t* __restrict__ valid, int n_slides, int n_cols,
-                   int k_per_slide, const int* __restrict__ slide_list,
+                   int k_per_slide, int n_slots, const int* __restrict__ slide_list,
                    float* __restrict__ best_out, int* __restrict__ arg_out) {
   extern __shared__ __align__(16) uint8_t smem[];
   uint8_t* qs = smem;                  // [QT][LDS] query tile
@@ -89,7 +93,7 @@ match_table_kernel(const int8_t* __restrict__ query, int nq, const int8_t* __res
   const int64_t row0 = (int64_t)slide * k_per_slide;
   const int8_t* dslide = desc + row0 * D;
   const uint8_t* vslide = valid + row0;
-  const int n_tiles = (k_per_slide + NT - 1) / NT;
+  const int n_tiles = (n_slots + NT - 1) / NT;
 
   // The query tile (rows past nq zero-filled) rides in the first copy group.
   for (int i = tid; i < QT * CHUNKS; i += THREADS) {
@@ -103,7 +107,7 @@ match_table_kernel(const int8_t* __restrict__ query, int nq, const int8_t* __res
     const int k0 = tile * NT;
     for (int i = tid; i < NT * CHUNKS; i += THREADS) {
       const int r = i / CHUNKS, c = i % CHUNKS;
-      const bool in = k0 + r < k_per_slide;
+      const bool in = k0 + r < n_slots;
       cp_async16(smem_addr(dst + r * LDS + c * 16), dslide + (int64_t)(in ? k0 + r : 0) * D + c * 16,
                  in);
     }
@@ -134,8 +138,8 @@ match_table_kernel(const int8_t* __restrict__ query, int nq, const int8_t* __res
   // packs (score, slot) so that one integer max is the tie rule: a valid
   // slot's key is (dot + BIAS) << 16 | (SLOT_MASK - k), >= 2^24; an invalid
   // slot's is SLOT_MASK - k, below every valid key. Higher score wins, then
-  // the lower slot; slots past K (zero-filled, invalid) lose to every slot
-  // of the slide.
+  // the lower slot; slots past n_slots (zero-filled, invalid) lose to every
+  // slot of the slide.
   int best[4];
 #pragma unroll
   for (int r = 0; r < 4; ++r) best[r] = kIntMin;
@@ -159,7 +163,7 @@ match_table_kernel(const int8_t* __restrict__ query, int nq, const int8_t* __res
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int k = k0 + wn + 8 * ng + 2 * t + j;
-        ok[ng][j] = k < k_per_slide && __ldg(vslide + k) != 0;
+        ok[ng][j] = k < n_slots && __ldg(vslide + k) != 0;
       }
     // 8 independent accumulator chains (4 slot groups x 2 query halves),
     // k-steps outermost, so consecutive mma do not wait for each other. The
@@ -230,11 +234,13 @@ match_table_kernel(const int8_t* __restrict__ query, int nq, const int8_t* __res
 }  // namespace
 
 // query [nq, 256] and desc [n_slides * k_per_slide, 256] int8, both 16-byte
-// aligned; k_per_slide <= MAX_K_PER_SLIDE; slide_list: n_cols int32 slide ids, or null for columns
-// 0..n_cols-1 (then n_cols == n_slides). An id outside [0, n_slides) traps.
+// aligned; 1 <= n_slots <= min(k_per_slide, MAX_SLOTS) (else
+// cudaErrorInvalidValue); slide_list: n_cols int32 slide ids, or null for
+// columns 0..n_cols-1 (then n_cols == n_slides). An id outside
+// [0, n_slides) traps.
 extern "C" int slideo_match_table(const void* query, int nq, const void* desc,
                                   const void* valid, int n_slides, int n_cols,
-                                  int k_per_slide, const void* slide_list,
+                                  int k_per_slide, int n_slots, const void* slide_list,
                                   void* best, void* arg, void* stream) {
   // Above 48 KB of shared memory needs an opt-in, once per device. Mesh
   // threads launch at once: the flags are atomic, and a repeated opt-in is
@@ -249,11 +255,12 @@ extern "C" int slideo_match_table(const void* query, int nq, const void* desc,
     if (err != cudaSuccess) return static_cast<int>(err);
     if (dev < kMaxDevices) opted_in[dev].store(true, std::memory_order_release);
   }
-  if (k_per_slide < 1 || k_per_slide > MAX_K_PER_SLIDE) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_slots < 1 || n_slots > k_per_slide || n_slots > MAX_SLOTS)
+    return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid((nq + QT - 1) / QT, n_cols);
   match_table_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(query), nq, static_cast<const int8_t*>(desc),
-      static_cast<const uint8_t*>(valid), n_slides, n_cols, k_per_slide,
+      static_cast<const uint8_t*>(valid), n_slides, n_cols, k_per_slide, n_slots,
       static_cast<const int*>(slide_list), static_cast<float*>(best), static_cast<int*>(arg));
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,8 +7,9 @@ Port of ``slideo_tpu/models/orb_matcher.py`` (reference lib.rs:249-414):
     rating / best > 0.2 -> warp + L2 similarity > 0.5 -> winner.
 
 Decks above ``MatchConfig.screen_above_slides`` slides first screen the
-slides in one stage-1 sweep per batch, and the exact table then covers each
-frame's 16 candidate slides (``_match_frames_screened_batch``).
+slides, and the exact table then covers each frame's 16 candidate slides:
+in one stage-1 sweep per batch (``_match_frames_screened_batch``) where the
+JAX package takes it, else frame by frame (``match_frame``).
 
 A frame that matches nothing gets slide -1. The JAX package picks the
 frame's query bucket with ``lax.switch`` on device; here the host reads the
@@ -200,13 +201,14 @@ def match_frame(
     cfg: SlideoConfig,
 ) -> FrameMatch:
     """Match one [H, W] grayscale frame against the deck; ``frame_seed``
-    (the frame index) seeds the frame's RANSAC draws. A screened deck gets
-    the same stage-1 candidates as in ``match_frames``."""
+    (the frame index) seeds the frame's RANSAC draws. A screened deck takes
+    the per-frame stage-1 rule (``hamming.screen_slides_frame``), as the
+    JAX package's ``match_frame`` does; ``match_frames`` takes the batched
+    rule where the JAX package does."""
     n_slides, k_per_slide = index.pts.shape[0], index.pts.shape[1]
     feats, frame_small = _frame_features(frame, cfg)
     table = hamming.match_table_frame(
-        feats.desc, feats.score, feats.valid, index.desc_index, n_slides,
-        k_per_slide, cfg.match,
+        feats.desc, feats.score, index.desc_index, n_slides, k_per_slide, cfg.match,
     )
     return _cascade(
         frame_small, tuple(frame.shape), frame_seed, feats, table, index, slide_hw, cfg
@@ -251,23 +253,19 @@ def match_frames(
     slide_hw: tuple[int, int],
     cfg: SlideoConfig,
 ) -> FrameMatch:
-    """Match a [B, H, W] batch; fields come back [B]. Decks above
-    ``cfg.match.screen_above_slides`` take the screened batch path, the
-    rest run frame by frame over the exact table.
+    """Match a [B, H, W] batch; fields come back [B].
 
-    At a K that is not a multiple of 128 the JAX package screens each frame
-    with its per-frame rule (``hamming.py:733-782``; it builds no screening
-    tensor there). That rule gives the batched rule's candidates
-    (tests/test_torch_screen.py) unless it trims stage 1 to
-    ``screen_k_per_slide`` slots below K: that trim is refused."""
+    Routed as the JAX package routes it (``orb_matcher.py:454-463``): decks
+    above ``cfg.match.screen_above_slides`` take the screened batch path
+    when ``screen_bits`` is 128 and K is a multiple of 128 (where the JAX
+    package has a screening tensor: on the TPU, ``hamming.py:148-154``; ORB
+    descriptors are 256 bits). Every other batch runs frame by frame through
+    ``match_frame``: the exact table, or above the limit the per-frame
+    stage-1 rule, which honours ``screen_bits`` and ``screen_k_per_slide``."""
     n_slides, k_per_slide = index.pts.shape[0], index.pts.shape[1]
-    if n_slides > cfg.match.screen_above_slides:
-        if k_per_slide % 128 and cfg.match.screen_k_per_slide < k_per_slide:
-            raise NotImplementedError(
-                f"screen_k_per_slide={cfg.match.screen_k_per_slide} < {k_per_slide} keypoints "
-                "per slide at a K that is not a multiple of 128: the JAX package's per-frame "
-                "trim of stage 1 is not ported to slideo_tpu_torch"
-            )
+    mcfg = cfg.match
+    if (n_slides > mcfg.screen_above_slides and mcfg.screen_bits == hamming.SCREEN_BITS
+            and k_per_slide % 128 == 0):
         return _match_frames_screened_batch(frames, frame_seeds, index, slide_hw, cfg)
     results = [
         match_frame(f, int(s), index, slide_hw, cfg) for f, s in zip(frames, frame_seeds)

@@ -4,11 +4,13 @@ Port of ``slideo_tpu/ops/hamming.py``. For +-1 vectors
 hamming = (256 - <q, d>) / 2, so the table is a max/argmax of dot products
 per (query, slide): kernel K5 (csrc/table.cu) on CUDA, the chunked matmul of
 ``hamming.py:307-358`` on the CPU. Decks above
-``MatchConfig.screen_above_slides`` first go through stage-1 screening
-(``screen_slides_batched``, kernel K5 mode (b), csrc/screen.cu, also in
-its strided and listed forms for the optional pre-vote), and the exact
-table then covers each frame's candidate slides only. Everything here
-is bit-equal to the JAX package.
+``MatchConfig.screen_above_slides`` first go through stage-1 screening,
+and the exact table then covers each frame's candidate slides only. Stage 1
+has the JAX package's two rules: the batched one
+(``screen_slides_batched``, kernel K5 mode (b), csrc/screen.cu, also in its
+strided and listed forms for the optional pre-vote) and the per-frame one
+(``screen_slides_frame``, the same kernel's prefix form, or K5 (a) over a
+prefix above 128 bits). Everything here is bit-equal to the JAX package.
 
 The SIFT engine's float counterparts (``hamming.py:392-456``, ``:641-700``)
 are plain products, as the JAX package leaves them to XLA:
@@ -40,6 +42,7 @@ __all__ = [
     "match_table_float",
     "screen_queries",
     "screen_slides_batched",
+    "screen_slides_frame",
     "screen_slides_float",
 ]
 
@@ -195,7 +198,8 @@ def screen_slides_batched(
     qdesc [B, Qs, D] int8: each frame's ``screen_queries`` rows, strongest
     first. Returns [B, C] int32, C = ``min(cfg.screen_slides, n_slides)``.
 
-    Single stage: all frames' 128-bit prefixes stack into one [B*Qs, 128]
+    Single stage: all frames' 128-bit prefixes (whatever ``screen_bits``
+    says, as in the JAX package) stack into one [B*Qs, 128]
     screening call over every slot of every slide (full K); each frame's
     candidates are the stable top C of its votes.
 
@@ -209,14 +213,10 @@ def screen_slides_batched(
     the order of the re-vote's stable top C: ties fall to the earlier
     position in the pre-vote's list, not to the lower slide id.
 
-    Prefixes other than 128 bits are refused. ``screen_k_per_slide`` is not
-    read: the JAX package's batched path ignores it too.
+    ``screen_k_per_slide`` is not read either: the JAX package's batched path
+    ignores both (``orb_matcher.match_frames`` routes the other settings to
+    ``screen_slides_frame``).
     """
-    if cfg.screen_bits != SCREEN_BITS:
-        raise NotImplementedError(
-            f"screen_bits={cfg.screen_bits}: only {SCREEN_BITS}-bit screening "
-            "is ported to slideo_tpu_torch"
-        )
     b, qs, _ = qdesc.shape
     prefixes = qdesc[..., :SCREEN_BITS]
     flat = prefixes.reshape(b * qs, SCREEN_BITS).contiguous()
@@ -238,34 +238,65 @@ def screen_slides_batched(
     return top_k(votes, c_out)[1].to(torch.int32)
 
 
+def screen_slides_frame(
+    query: torch.Tensor,
+    query_score: torch.Tensor,
+    index: DescriptorIndex,
+    n_slides: int,
+    k_per_slide: int,
+    cfg: MatchConfig,
+) -> torch.Tensor:
+    """Stage-1 candidate slides [min(cfg.screen_slides, n_slides)] int32 of
+    one frame by the JAX package's per-frame rule (``_screen_slides``,
+    ``hamming.py:733-782``).
+
+    The ``cfg.screen_queries`` rows of ``query`` [Q, D] with the highest raw
+    ``query_score`` (stable, lowest index first; invalid rows are not
+    masked, and a frame of fewer rows gives them all) vote with their
+    ``bits = min(screen_bits, D)``-bit prefixes over the first ``ksk =
+    min(screen_k_per_slide, K)`` slots of every slide, read in place (the
+    JAX package gathers a prefix index): K5 (b)'s prefix form up to 128
+    bits, K5 (a) above, the query zero past the prefix. A query keeps every
+    slide with a valid slot among those ``ksk`` whose best prefix distance
+    lies within 5% + 1 bit of its best such slide's; the candidates are the
+    stable top of the float32 votes.
+    """
+    _, top_q = top_k(query_score, min(cfg.screen_queries, query.shape[0]))
+    d_bits = query.shape[1]
+    bits = min(cfg.screen_bits, d_bits)
+    ksk = min(cfg.screen_k_per_slide, k_per_slide)
+    q_sub = query[top_q, :bits].contiguous()
+    if bits <= SCREEN_BITS:
+        best = screen_scores(q_sub, index.desc, index.valid, n_slides, k_per_slide, n_slots=ksk)
+    else:
+        q_pad = torch.nn.functional.pad(q_sub, (0, d_bits - bits))
+        best, _ = match_table_scores(
+            q_pad, index.desc, index.valid, n_slides, k_per_slide, n_slots=ksk
+        )
+    dist = (bits - best.to(torch.float32)) * 0.5
+    svalid = index.valid.reshape(n_slides, k_per_slide)[:, :ksk].any(dim=1)
+    bestd = torch.where(svalid, dist, torch.inf).amin(dim=1, keepdim=True)
+    keep = svalid & (dist <= bestd * 1.05 + 1.0)
+    votes = keep.sum(dim=0).to(torch.float32)
+    return top_k(votes, min(cfg.screen_slides, n_slides))[1].to(torch.int32)
+
+
 def match_table_frame(
     query: torch.Tensor,
     query_score: torch.Tensor,
-    query_valid: torch.Tensor,
     index: DescriptorIndex,
     n_slides: int,
     k_per_slide: int,
     cfg: MatchConfig,
 ) -> MatchTable:
-    """Frame-level table: the exact table over every slide for decks of at
-    most ``cfg.screen_above_slides`` slides; above that, the frame's
-    stage-1 candidates (``screen_slides_batched`` on a batch of one) and the
-    exact table over those columns. The port has one stage-1 rule, the
-    batched path's, with or without ``screen_prevote``, so a frame gets the
-    same candidates alone as in a batch (the JAX package's per-frame
-    ``_screen_slides`` is not ported). That rule votes over full K, so a
-    ``screen_k_per_slide`` below ``k_per_slide``, which JAX's per-frame
-    rule trims stage 1 to, is refused."""
+    """Frame-level table (``hamming.py:612-638``): the exact table over
+    every slide for decks of at most ``cfg.screen_above_slides`` slides;
+    above that, the frame's stage-1 candidates by the per-frame rule
+    (``screen_slides_frame``) and the exact table over those columns, read
+    in place."""
     if n_slides <= cfg.screen_above_slides:
         return match_table(query, index, n_slides, k_per_slide)
-    if cfg.screen_k_per_slide < k_per_slide:
-        raise NotImplementedError(
-            f"screen_k_per_slide={cfg.screen_k_per_slide} < {k_per_slide} keypoints per "
-            "slide: the JAX package's per-frame trim of stage 1 is not ported to "
-            "slideo_tpu_torch"
-        )
-    qdesc = screen_queries(query, query_score, query_valid, cfg)
-    cand = screen_slides_batched(qdesc[None], index, n_slides, k_per_slide, cfg)[0]
+    cand = screen_slides_frame(query, query_score, index, n_slides, k_per_slide, cfg)
     return match_table(query, index, n_slides, k_per_slide, slide_ids=cand)
 
 

@@ -10,8 +10,11 @@ batches after a warm-up batch:
   (``cuda_fast.fast_score_map`` / ``fast_score_map_batch``);
 - detect: the per-level quota top-k (``features.detect_from_scores``);
 - describe at the first query bucket (768 slots), K3+K4;
-- describe + table (``hamming.match_table_frame``; screened above 96
-  slides);
+- describe + table (``hamming.match_table_frame``; above 96 slides each
+  frame is screened alone by the per-frame stage-1 rule,
+  ``hamming.screen_slides_frame``, as the JAX package's ``match_frame``
+  screens it, not by the batched rule that ``match_frames`` takes at the
+  default settings);
 - the full ``match_frames``.
 
 The deck and the frames are synthetic, made from ``--seed`` with numpy:
@@ -122,9 +125,7 @@ def profile(
 
     def describe_table(inp):
         for ft in describe(inp):
-            hamming.match_table_frame(
-                ft.desc, ft.score, ft.valid, index.desc_index, n_slides, k, cfg.match
-            )
+            hamming.match_table_frame(ft.desc, ft.score, index.desc_index, n_slides, k, cfg.match)
 
     stages = {
         "pyramid": (pyramid, batches),

@@ -11,7 +11,9 @@ the Pallas screening kernel runs with ``interpret=True``.
       library's name hashes the ``csrc`` headers too, and the package ships
       every file a build reads.
 (ii)  ``screen_slides_batched`` gives JAX's candidate ids: random, tie-heavy
-      and exact vote-boundary decks.
+      and exact vote-boundary decks, and at ``screen_bits = 64``, which
+      both packages' batched rule reads as 128; ``match_table_frame`` gives
+      JAX's table, the per-frame rule's candidates above the limit.
 (iii) ``match_frames`` and ``MatchingEngine`` on a 100-slide deck assign
       JAX's slides.
 (iv)  On JAX's own features: the same candidates, a bit-equal stage-2 table
@@ -19,10 +21,10 @@ the Pallas screening kernel runs with ``interpret=True``.
       similarity as JAX's batched screened path.
 (v)   At a K that is not a multiple of 128 (K = 200, 12 slides over a
       lowered limit of 8), where the JAX package screens frame by frame
-      (``_screen_slides``, no screening tensor): the port's batched rule
-      gives its candidates on its features and ``match_frames`` its slides;
-      a ``screen_k_per_slide`` below K, which that rule trims to, is
-      refused.
+      (``_screen_slides``, no screening tensor): the port's per-frame rule
+      gives its candidates on its features, at full K (where the batched
+      rule gives them too) and trimmed to ``screen_k_per_slide`` = 128
+      slots, and ``match_frames`` its slides.
 """
 
 from __future__ import annotations
@@ -227,37 +229,46 @@ def test_screen_votes_at_the_boundary(bestd):
 
 @pytest.mark.parametrize("n_slides", [96, 97])
 def test_match_table_frame_screens_decks_above_the_limit(n_slides):
-    """A single frame's table: all columns up to screen_above_slides = 96;
-    above it, the columns of the frame's stage-1 candidates, the same ones
-    the batch path gives it."""
+    """A single frame's table equals the JAX package's ``match_table_frame``
+    on its index without a screening tensor: all columns up to
+    screen_above_slides = 96; above it, the columns of the frame's
+    per-frame stage-1 candidates (``_screen_slides``: the raw scores pick
+    the queries, invalid rows among them)."""
     rng = np.random.RandomState(n_slides)
     k, q = 128, 300
     desc = _pm1(rng, n_slides, k, 256)
     valid = rng.rand(n_slides, k) > 0.2
     query = _near(rng, desc[40, rng.choice(k, q)], 20)
-    score = torch.from_numpy(rng.rand(q).astype(np.float32))
-    qvalid = torch.from_numpy(rng.rand(q) > 0.1)
-    query[~qvalid.numpy()] = 0
+    score = rng.rand(q).astype(np.float32)
+    query[rng.rand(q) < 0.1] = 0
     ti, tq = _port_index(desc, valid), torch.from_numpy(query)
-    mcfg = port_cfg(DEFAULT_CONFIG.match)
-    got = tham.match_table_frame(tq, score, qvalid, ti, n_slides, k, mcfg)
-    if n_slides <= mcfg.screen_above_slides:
-        want_ids = torch.arange(n_slides, dtype=torch.int32)
-    else:
-        qdesc = tham.screen_queries(tq, score, qvalid, mcfg)
-        want_ids = tham.screen_slides_batched(qdesc[None], ti, n_slides, k, mcfg)[0]
-        assert want_ids.shape == (mcfg.screen_slides,) and int(want_ids[0]) == 40
-    want = tham.match_table(tq, ti, n_slides, k, slide_ids=want_ids)
+    cfg = DEFAULT_CONFIG.match
+    got = tham.match_table_frame(tq, torch.from_numpy(score), ti, n_slides, k, port_cfg(cfg))
+    ji = jham.build_index(jnp.asarray(desc), jnp.asarray(valid))
+    want = jham.match_table_frame(jnp.asarray(query), jnp.asarray(score), ji, n_slides, k, cfg)
     for name in ("dist", "train", "slide_ids", "valid"):
-        assert torch.equal(getattr(got, name), getattr(want, name)), name
+        assert np.array_equal(getattr(got, name).numpy(), np.asarray(getattr(want, name))), name
+    if n_slides <= cfg.screen_above_slides:
+        assert got.slide_ids.tolist() == list(range(n_slides))
+    else:
+        assert got.slide_ids.shape == (cfg.screen_slides,) and int(got.slide_ids[0]) == 40
 
 
 def test_screening_refuses_options_not_ported():
-    ti = _port_index(np.ones((2, 128, 256), np.int8), np.ones((2, 128), bool))
-    q = torch.ones((1, 4, 256), dtype=torch.int8)
-    cfg = port_cfg(dataclasses.replace(DEFAULT_CONFIG.match, screen_bits=64))
-    with pytest.raises(NotImplementedError, match="screen_bits"):
-        tham.screen_slides_batched(q, ti, 2, 128, cfg)
+    """No screening option is refused any more (the name is the test's
+    from when ``screen_bits = 64`` was): the batched rule at 64 bits votes
+    with 128-bit prefixes, as the JAX package's does, so its candidates
+    equal JAX's and its own at the default 128."""
+    rng = np.random.RandomState(64)
+    s, k = 24, 128
+    desc = _pm1(rng, s, k, 256)
+    valid = rng.rand(s, k) > 0.2
+    qdesc = np.stack([_near(rng, desc[t, rng.choice(k, 40)], 24) for t in (3, 17)])
+    cfg = dataclasses.replace(DEFAULT_CONFIG.match, screen_bits=64)
+    want, got = _screen_both(qdesc, desc, valid, cfg)
+    assert np.array_equal(got, want)
+    _, at128 = _screen_both(qdesc, desc, valid, DEFAULT_CONFIG.match)
+    assert np.array_equal(got, at128) and got[:, 0].tolist() == [3, 17]
 
 
 # --- the 100-slide deck of test_screened_batch.py --------------------------
@@ -389,7 +400,13 @@ def test_screened_stage2_and_cascade_with_jax_draws(deck100):
             assert float(got.similarity) == w_sim, i
 
 
-def test_per_frame_rule_at_k_not_a_multiple_of_128():
+@functools.lru_cache(maxsize=1)
+def k200_inputs():
+    """12 slides (slide 3 blank: no valid slot), 6 warped frames of slides
+    0, 1, 2, 4, 6, 9 and a noise frame, a small ORB config at K = 200 with
+    the screening limit lowered to 8 slides (4 candidates, 128 queries),
+    the JAX package's index (no screening tensor at that K) and the port's
+    index from its arrays; built once a process."""
     rng = np.random.RandomState(5)
     n_slides = 12
     slides = _deck(rng, n_slides, HW)
@@ -409,15 +426,21 @@ def test_per_frame_rule_at_k_not_a_multiple_of_128():
         match=dataclasses.replace(DEFAULT_CONFIG.match, ransac_iters=256, min_rating=20.0,
                                   screen_above_slides=8, screen_slides=4, screen_queries=128),
     )
-    tcfg = port_cfg(cfg)
     ji = jom.build_slide_index(jnp.asarray(slides), cfg)
-    k = ji.pts.shape[1]
-    assert k == 200 and ji.desc_index.screen_desc is None  # JAX takes its per-frame rule
     ti = tom.slide_index_from_numpy(
         np.asarray(ji.desc_index.desc), np.asarray(ji.desc_index.valid), np.asarray(ji.pts),
         np.asarray(ji.smalls), device="cpu",
     )
+    return cfg, frames, ji, ti
+
+
+def test_per_frame_rule_at_k_not_a_multiple_of_128():
+    cfg, frames, ji, ti = k200_inputs()
+    n_slides, k = ji.pts.shape[0], ji.pts.shape[1]
+    tcfg = port_cfg(cfg)
+    assert k == 200 and ji.desc_index.screen_desc is None  # JAX takes its per-frame rule
     meta = jfeat.pyramid_meta(*HW, cfg.orb)
+    trim = dataclasses.replace(cfg, match=dataclasses.replace(cfg.match, screen_k_per_slide=128))
     for frame in frames:
         atlas = jfeat.build_pyramid(jnp.asarray(frame).astype(jnp.float32), cfg.orb)
         feats = jfeat.describe(atlas, meta, jfeat.detect_pyramid(atlas, meta, cfg.orb), k, cfg.orb)
@@ -426,11 +449,17 @@ def test_per_frame_rule_at_k_not_a_multiple_of_128():
         qdesc = tham.screen_queries(*t, tcfg.match)
         got = tham.screen_slides_batched(qdesc[None], ti.desc_index, n_slides, k, tcfg.match)[0]
         assert got.tolist() == np.asarray(want).tolist()
+        got = tham.screen_slides_frame(t[0], t[1], ti.desc_index, n_slides, k, tcfg.match)
+        assert got.tolist() == np.asarray(want).tolist()
+        want = jham._screen_slides(feats.desc, feats.score, ji.desc_index, n_slides, trim.match)
+        got = tham.screen_slides_frame(t[0], t[1], ti.desc_index, n_slides, k, port_cfg(trim.match))
+        assert got.tolist() == np.asarray(want).tolist()
 
     want = jom.match_frames(jnp.asarray(frames), jnp.arange(len(frames), dtype=jnp.int32), ji, HW, cfg)
     got = tom.match_frames(torch.from_numpy(frames), list(range(len(frames))), ti, HW, tcfg)
     assert got.slide.tolist() == np.asarray(want.slide).tolist() == [0, 1, 2, 4, 6, 9, -1]
 
-    trim = port_cfg(dataclasses.replace(cfg, match=dataclasses.replace(cfg.match, screen_k_per_slide=128)))
-    with pytest.raises(NotImplementedError, match="screen_k_per_slide=128 < 200"):
-        tom.match_frames(torch.from_numpy(frames[:1]), [0], ti, HW, trim)
+    # Trimmed to 128 slots, both packages take the per-frame rule.
+    want = jom.match_frames(jnp.asarray(frames[:1]), jnp.zeros((1,), jnp.int32), ji, HW, trim)
+    got = tom.match_frames(torch.from_numpy(frames[:1]), [0], ti, HW, port_cfg(trim))
+    assert got.slide.tolist() == np.asarray(want.slide).tolist()

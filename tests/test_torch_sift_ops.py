@@ -5,9 +5,9 @@ counterpart in ``slideo_tpu_torch``: the Gaussian blur, ``extract_sift``,
 the homography and its RANSAC (with JAX's threefry draws injected), the
 float table and its bf16 screening, the per-slide Lowe selection, and the
 homography verification, whose sampling is kernel K6h's plain version on a
-CPU tensor. Also here: the per-frame screened table refuses a
-``screen_k_per_slide`` it does not run, and a decode error in the prefetch
-thread reaches the consumer.
+CPU tensor. Also here: the per-frame screened table trims stage 1 to a
+``screen_k_per_slide`` below K as JAX's does, and a decode error in the
+prefetch thread reaches the consumer.
 """
 
 from __future__ import annotations
@@ -354,17 +354,33 @@ def test_sift_verification_frame_thumbnail_keeps_default_area():
 
 
 def test_match_table_frame_refuses_screen_k_per_slide_below_k():
-    k = 64
-    di = tham.build_index(torch.ones((100, k, 256), dtype=torch.int8),
-                          torch.ones((100, k), dtype=torch.bool))
-    q = torch.ones((8, 256), dtype=torch.int8)
-    score, qvalid = torch.rand(8), torch.ones(8, dtype=torch.bool)
-    cfg = port_cfg(dataclasses.replace(DEFAULT_CONFIG.match, screen_k_per_slide=32))
-    with pytest.raises(NotImplementedError, match="screen_k_per_slide"):
-        tham.match_table_frame(q, score, qvalid, di, 100, k, cfg)
-    # At or above K (the default 2048 here) the batched rule is the same.
-    full = port_cfg(dataclasses.replace(DEFAULT_CONFIG.match, screen_k_per_slide=k))
-    assert tham.match_table_frame(q, score, qvalid, di, 100, k, full).dist.shape == (8, 16)
+    """No longer refused (the name is the test's from when it was):
+    ``screen_k_per_slide`` below K trims the per-frame stage 1 to each
+    slide's first slots, as the JAX package's ``match_table_frame`` does;
+    at K the vote covers every slot. The table over the candidates equals
+    JAX's."""
+    rng = np.random.RandomState(356)
+    s, k, q = 100, 64, 8
+    desc = np.where(rng.rand(s, k, 256) > 0.5, 1, -1).astype(np.int8)
+    valid = rng.rand(s, k) > 0.2
+    valid[61, 40:40 + q] = True
+    query = desc[61, 40:40 + q].copy()    # the frame lies in slide 61's slots 40..47
+    for row in query:
+        row[rng.choice(256, 10, replace=False)] *= -1
+    score = rng.rand(q).astype(np.float32)
+    ji = jham.build_index(jnp.asarray(desc), jnp.asarray(valid))
+    ti = tham.build_index(torch.from_numpy(desc), torch.from_numpy(valid))
+    cands = []
+    for ksk in (32, k):
+        cfg = dataclasses.replace(DEFAULT_CONFIG.match, screen_k_per_slide=ksk, screen_queries=q)
+        want = jham.match_table_frame(jnp.asarray(query), jnp.asarray(score), ji, s, k, cfg)
+        got = tham.match_table_frame(torch.from_numpy(query), torch.from_numpy(score), ti, s, k,
+                                     port_cfg(cfg))
+        assert got.dist.shape == (q, cfg.screen_slides)
+        for name in ("dist", "train", "slide_ids", "valid"):
+            assert np.array_equal(getattr(got, name).numpy(), np.asarray(getattr(want, name))), name
+        cands.append(got.slide_ids.tolist())
+    assert 61 not in cands[0] and cands[1][0] == 61   # the trim hides the frame's slots
 
 
 def test_prefetched_reraises_decode_error():
