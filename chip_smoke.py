@@ -836,8 +836,8 @@ def phase_compare_orb(torch, sources: list[str], seed: int, smi: str) -> None:
         lib, resources, ops = compare_library(src, len(libs), ("slideo_orb_describe",), sig)
         lds = lambda width: sum(n for op, n in ops.items()  # noqa: E731
                                 if op.startswith("LDS.") and op.endswith(f".{width}"))
-        print(f"[compare] {src}: {resources}; {sum(n for op, n in ops.items() if '.' not in op)} "
-              f"SASS instructions, LDS {ops['LDS']} (64-bit {lds(64)}, 128-bit {lds(128)}), " + ", ".join(
+        print(f"[compare] {src}: {resources}; {sass_total(ops)} SASS instructions, LDS "
+              f"{ops['LDS']} (64-bit {lds(64)}, 128-bit {lds(128)}), " + ", ".join(
                   f"{op} {ops[op]}" for op in ("LDGSTS", "UTMALDG", "FFMA", "BAR", "SHFL")))
         libs[src] = (lib, None if origins else orb_tile(text))
     rng = np.random.RandomState(seed)
@@ -1103,13 +1103,17 @@ def time_screen(torch, label: str, query, di, n_slides: int, k: int, smi: str,
 
 
 def kernel_name(mangled: str) -> str:
-    """The innermost name of a mangled kernel (``_ZN<n>ns<n>name...``)."""
+    """The innermost name of a mangled kernel (``_ZN<n>ns<n>name...``), with
+    its integer template arguments (``name<128>``)."""
     import re
 
     i, name = 3 if mangled.startswith("_ZN") else 2, mangled
     while (m := re.match(r"\d+", mangled[i:])):
         n = int(m.group())
         name, i = mangled[i + m.end():i + m.end() + n], i + m.end() + n
+    args = re.match(r"I((?:Li-?\d+E)+)E", mangled[i:])
+    if args:
+        name += "<" + ", ".join(re.findall(r"Li(-?\d+)E", args.group(1))) + ">"
     return name
 
 
@@ -1120,8 +1124,8 @@ def compare_library(src: str, index: int, symbols: tuple, signatures: dict | Non
     ptxas's resource lines (each kernel's name, then its lines) and the
     counts of the SASS opcodes from ``cuobjdump -sass``: by name (before
     the first dot) and, for an opcode with modifiers, also in full
-    (``LDS.U.128``), and each kernel's instructions under
-    ``"kernel.NAME"``."""
+    (``LDS.U.128``), each kernel's instructions under ``"kernel.NAME"`` and
+    its opcodes by name under ``"OP@NAME"``."""
     import collections
     import ctypes
     import re
@@ -1151,6 +1155,7 @@ def compare_library(src: str, index: int, symbols: tuple, signatures: dict | Non
         for op in re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)", part):
             ops[op.split(".")[0]] += 1
             ops[kernel] += 1
+            ops[f"{op.split('.')[0]}@{kernel[7:]}"] += 1
             if "." in op:
                 ops[op] += 1
     lib = ctypes.CDLL(str(so))
@@ -1158,6 +1163,11 @@ def compare_library(src: str, index: int, symbols: tuple, signatures: dict | Non
         getattr(lib, name).argtypes = (signatures or _kernels._SIGNATURES)[name]
         getattr(lib, name).restype = ctypes.c_int
     return lib, resources, ops
+
+
+def sass_total(ops) -> int:
+    """The instructions counted by ``compare_library``'s opcode names."""
+    return sum(n for op, n in ops.items() if "." not in op and "@" not in op)
 
 
 # (slots, prefix bits) of the per-frame rule's prefix table that phase 10
@@ -1200,8 +1210,9 @@ def phase_compare_screen(torch, sources: list[str], seed: int, smi: str) -> None
     ``slideo_screen`` in the current C signature, or in one of
     ``EARLIER_SCREEN_SIGNATURES``, called through
     ``earlier_screen_library``) is built into a library of its own; ptxas's
-    registers, spills and shared memory and the SASS counts of IMMA, IDP
-    (dp4a), LDSM, LDGSTS and LDS are printed. On a random +-1 index of the
+    registers, spills and shared memory and the SASS counts of IGMMA
+    (wgmma), UTMALDG (TMA loads), IMMA (mma.sync), IDP (dp4a), LDSM, LDGSTS
+    and LDS are printed, in all and for each kernel. On a random +-1 index of the
     phase-5 shape (500 slides x 2048 slots, 10% of slots and slide 7
     invalid) and 64 frames' worth of random prefixes (every 7th row zero),
     each version is held bit-equal on every case of ``screen_cases`` it
@@ -1209,7 +1220,7 @@ def phase_compare_screen(torch, sources: list[str], seed: int, smi: str) -> None
     64 frames and one frame (and, where it takes them, at the strided and
     listed 64-frame cases), in turns, forwards then backwards. A source
     with the per-frame prefix form is also held bit-equal and timed on one
-    frame's rows at each of ``PREFIX_SETTINGS``."""
+    frame's rows and on 64 frames' at each of ``PREFIX_SETTINGS``."""
     import ctypes
     import re
 
@@ -1227,11 +1238,13 @@ def phase_compare_screen(torch, sources: list[str], seed: int, smi: str) -> None
         sig = (None if form is None else
                {"slideo_screen": tuple(ctype[c] for c in EARLIER_SCREEN_SIGNATURES[form])})
         lib, resources, ops = compare_library(src, len(libs), ("slideo_screen",), sig)
-        by_kernel = ", ".join(f"{op[7:]} {n}" for op, n in ops.items() if op.startswith("kernel."))
+        sass_ops = ("IGMMA", "UTMALDG", "IMMA", "IDP", "LDSM", "LDGSTS", "LDS")
+        by_kernel = ", ".join(
+            f"{op[7:]} {n} (" + ", ".join(f"{o} {ops[f'{o}@{op[7:]}']}" for o in sass_ops) + ")"
+            for op, n in ops.items() if op.startswith("kernel."))
         print(f"[compare] {src}{f' ({form} signature)' if form else ''}: {resources}; "
-              f"{sum(n for op, n in ops.items() if '.' not in op)} SASS instructions "
-              f"({by_kernel}), "
-              + ", ".join(f"{op} {ops[op]}" for op in ("IMMA", "IDP", "LDSM", "LDGSTS", "LDS")))
+              f"{sass_total(ops)} SASS instructions ({by_kernel}), "
+              + ", ".join(f"{op} {ops[op]}" for op in sass_ops))
         libs[src] = (lib if form is None else earlier_screen_library(lib, form), form)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -1246,7 +1259,9 @@ def phase_compare_screen(torch, sources: list[str], seed: int, smi: str) -> None
     cases = screen_cases(torch, prefixes, 256, di, n_slides, k, DEFAULT_CONFIG.match)
     by_label = {c[0]: c for c in cases}
     timed = ("64 frames", "one frame", "strided 64 frames", "listed 64 frames")
-    prefix = [f"one frame, {n} slots, {bits} bits" for n, bits in PREFIX_SETTINGS]
+    prefix = {f"{frames}, {n} slots, {bits} bits": (rows, n, bits)
+              for n, bits in PREFIX_SETTINGS
+              for frames, rows in (("one frame", prefixes[:256]), ("64 frames", prefixes))}
     times = {src: {label: [] for label in (*timed, *prefix)} for src in sources}
     try:
         for turn, names in enumerate((sources, sources[::-1])):
@@ -1260,9 +1275,9 @@ def phase_compare_screen(torch, sources: list[str], seed: int, smi: str) -> None
                     _, dev_ms, _ = time_screen(torch, f"{src} {label}", query, di_, n_s, k_, smi,
                                                plain=False, stride=stride, ids=ids)
                     times[src][label].append(dev_ms["kernel"])
-                for label, (n, bits) in zip(prefix if form is None else (), PREFIX_SETTINGS):
-                    case = prefix_case(torch, f"{src} {label}", prefixes[:256], di, n_slides, k,
-                                       n, bits, smi, library=False)
+                for label, (rows, n, bits) in (prefix.items() if form is None else ()):
+                    case = prefix_case(torch, f"{src} {label}", rows, di, n_slides, k, n, bits,
+                                       smi, library=False)
                     times[src][label].append(case["dev"]["kernel"])
     finally:
         _kernels._lib = None
@@ -1305,7 +1320,7 @@ def phase_compare_fast(torch, sources: list[str], seed: int, smi: str) -> None:
     libs = {}
     for src in sources:
         lib, resources, ops = compare_library(src, len(libs), ("slideo_fast_nms", "slideo_fast_nms_batch"))
-        print(f"[compare] {src}: {resources}; {sum(n for op, n in ops.items() if '.' not in op)} SASS instructions, " + ", ".join(
+        print(f"[compare] {src}: {resources}; {sass_total(ops)} SASS instructions, " + ", ".join(
             f"{op} {ops[op]}" for op in ("HMNMX2", "VHMNMX", "FMNMX", "F2FP", "LDS", "LDG", "STG")))
         libs[src] = lib
     thr = DEFAULT_CONFIG.orb.fast_threshold
@@ -1616,12 +1631,13 @@ def phase_screened(torch, seed: int, smi: str) -> tuple[list, list, dict, dict]:
                for c in cases}
 
     def k5b_row(name: str, replaces: str, form: str) -> dict:
-        """The kernel row of one form (its 64-frame case, and its one-frame
-        case beside the library product); max_abs_err over the form's
-        cases."""
+        """The kernel row of one form (its 64-frame case, beside the library
+        product in the strided form, whose 8.4 GB product fits the card;
+        and its one-frame case beside the library product); max_abs_err
+        over the form's cases."""
         many, one = by_label[f"{form}{len(frames)} frames"], by_label[f"{form}one frame"]
-        ms, dev_ms, cost = time_screen(torch, many[0], *many[1:5], smi, stride=many[5],
-                                       ids=many[6])
+        ms, dev_ms, cost = time_screen(torch, many[0], *many[1:5], smi,
+                                       library=form == "strided ", stride=many[5], ids=many[6])
         o_ms, o_dev, o_cost = time_screen(torch, one[0], *one[1:5], smi, library=True,
                                           stride=one[5], ids=one[6])
         return kernel_row(

@@ -9,7 +9,10 @@ each frame's rows over its own listed slides (``:584``). The per-frame rule
 ``_screen_slides`` runs it at ``:288`` on a prefix index of its own: the
 first ``screen_bits`` bits of the first ``screen_k_per_slide`` slots of every
 slide (the prefix form, ``n_slots`` and the query's width here). A CUDA
-tensor launches the kernel; a CPU tensor takes the plain version, a float32
+tensor launches a kernel: the single stage ``screen_kernel`` (``mma.sync``),
+every other form ``screen_tma_kernel`` (``wgmma`` over a TMA ring, its tensor
+maps encoded per call; one the encoder refuses raises, as a failed launch
+does). A CPU tensor takes the plain version, a float32
 matmul per chunk of slides (exact for +-1 prefixes), masked to -254, then a
 max. Both are bit-equal to the TPU kernel, whose per-frame call scores an
 invalid slot otherwise (a -1e6 bias): that changes the best of a slide with
@@ -121,7 +124,7 @@ def screen_scores(
     if bits < width:
         query = torch.nn.functional.pad(query, (0, width - bits))
     if query.data_ptr() % 16 or desc.data_ptr() % 16:
-        raise ValueError("screen: query and desc must be 16-byte aligned (cp.async)")
+        raise ValueError("screen: query and desc must be 16-byte aligned (cp.async, TMA)")
     if slide_ids is None:
         name, ids_ptr, n_cols, rows_per_group = (
             "screen" if stride == 1 else "screen_strided", None, n_slides, r)
