@@ -49,7 +49,7 @@ from ..models import orb_matcher, sift_matcher
 from ..ops import hamming
 from ..ops import image as image_ops
 from ..parallel import mesh as mesh_mod
-from ..utils.trace import StageTracer
+from ..utils.trace import DISABLED, StageTracer
 from .db import Db, PdfExtractedPagesDir
 from .hashing import get_temp_path_key, hash_files, hash_str
 from .progress import ComposedProgressReporter, ProgressReporter, null_reporter
@@ -385,6 +385,9 @@ class MatchingEngine:
     # Pages per decoded chunk and upload of the index build (bounds host
     # and device memory).
     _BUILD_CHUNK = 32
+    # The tracer of the running ``_match_records``, which ``match_batch``
+    # hands to the ORB matcher.
+    _tracer: StageTracer = DISABLED
 
     def __init__(
         self,
@@ -489,9 +492,15 @@ class MatchingEngine:
         """Match a [n, H, W] batch on the engine's devices; fields come back
         [n]. On a mesh the batch is padded to a multiple of the mesh size
         with copies of the last frame under seed 0 (``pipeline.py:707-712``),
-        and their results are dropped."""
+        and their results are dropped. On one device the ORB matcher times
+        its stages on the tracer of the running ``match_samples``; the SIFT
+        matcher and the mesh are timed as a whole."""
         if self.mesh is None:
-            return self._match_frames(frames, frame_seeds, self.index, self.slide_hw, self.cfg)
+            if self.cfg.engine == "sift":
+                return self._match_frames(frames, frame_seeds, self.index, self.slide_hw, self.cfg)
+            return orb_matcher.match_frames(
+                frames, frame_seeds, self.index, self.slide_hw, self.cfg, self._tracer
+            )
         n = frames.shape[0]
         pad = -n % self.mesh.size
         if pad:
@@ -510,20 +519,28 @@ class MatchingEngine:
         return _VideoMatcherTask(self, video_path, reporter)
 
     def _dedup(
-        self, frames: torch.Tensor, prev_small: torch.Tensor | None
+        self, frames: torch.Tensor, prev_small: torch.Tensor | None,
+        tracer: StageTracer = DISABLED,
     ) -> tuple[torch.Tensor, np.ndarray]:
         """Thumbnails of a [B, H, W] batch and which frames changed against
-        their predecessor (the first frame of a run always counts changed)."""
+        their predecessor (the first frame of a run always counts changed);
+        ``tracer`` times "dedup.compare" (in a run's first batch with
+        "sync.first", the host's write of the first similarity) and the read
+        of the verdicts, "sync.verdict"."""
         cfg = self.cfg
-        small_hw = image_ops.small_size(*frames.shape[1:], cfg.video.small_image_area)
-        smalls = image_ops.resize(frames, small_hw, area=True)
-        prev = torch.zeros_like(smalls[:1]) if prev_small is None else prev_small[None]
-        sims = image_ops.compute_similarity(
-            smalls, torch.cat([prev, smalls[:-1]]), channels=1
-        )
-        if prev_small is None:
-            sims[0] = 0.0
-        return smalls, (sims < cfg.video.dedup_similarity).cpu().numpy()
+        with tracer.stage("dedup.compare"):
+            small_hw = image_ops.small_size(*frames.shape[1:], cfg.video.small_image_area)
+            smalls = image_ops.resize(frames, small_hw, area=True)
+            prev = torch.zeros_like(smalls[:1]) if prev_small is None else prev_small[None]
+            sims = image_ops.compute_similarity(
+                smalls, torch.cat([prev, smalls[:-1]]), channels=1
+            )
+            if prev_small is None:
+                with tracer.stage("sync.first"):
+                    sims[0] = 0.0
+            changed = sims < cfg.video.dedup_similarity
+        with tracer.stage("sync.verdict"):
+            return smalls, changed.cpu().numpy()
 
     def match_samples(
         self,
@@ -534,6 +551,7 @@ class MatchingEngine:
         checkpoint=None,
         resume_state: tuple[list, int] | None = None,
         frames_total: int = 0,
+        tracer: StageTracer | None = None,
     ) -> list[Matching]:
         """Match a stream of sampled frames; returns the cleaned timeline.
 
@@ -544,10 +562,12 @@ class MatchingEngine:
         the newly decided frames. resume_state: (rows, last_frame_idx) from
         Db.load_partial_matchings; the caller's samples start after it.
         frames_total: the expected number of samples, for progress reports.
+        tracer: times the engine's stages (see ``_match_records``); the
+        program calls nothing on it but ``stage(name)``.
         """
         return _clean_timeline(self._match_records(
             samples, total_ms, total_frames, reporter, checkpoint, resume_state,
-            frames_total, None,
+            frames_total, tracer,
         ))
 
     def _match_records(
@@ -563,10 +583,15 @@ class MatchingEngine:
     ) -> list[Matching]:
         """``match_samples`` before the timeline is cleaned: the sentinel
         record first, then every matched frame's record in match order.
-        ``tracer`` times the stages "dedup", "match.dispatch" and
-        "match.fetch" (``pipeline.py:671-766``)."""
+        ``tracer`` times the stages "dedup" (with its children "dedup.stack",
+        "sync.upload", "dedup.compare", itself holding "sync.first" in the
+        first batch, and "sync.verdict"), "match.dispatch"
+        (with the ORB matcher's stages as children) and "match.fetch"
+        (``pipeline.py:671-766``); the "sync.*" stages (the matcher's
+        "sync.count" and "sync.pick" among them) and "match.fetch" are the
+        host's reads of device results."""
         cfg = self.cfg
-        tracer = tracer or StageTracer(enabled=False)
+        tracer = tracer or DISABLED
         results: list[Matching] = [
             Matching(video_ms=total_ms, video_frame_idx=total_frames, page=None)
         ]
@@ -627,8 +652,11 @@ class MatchingEngine:
             if not batch or (len(batch) < bs and not force):
                 return
             with tracer.stage("dedup"):
-                frames = torch.from_numpy(np.stack([b.gray for b in batch])).to(self.device)
-                smalls, changed = self._dedup(frames, prev_small)
+                with tracer.stage("dedup.stack"):
+                    grays = torch.from_numpy(np.stack([b.gray for b in batch]))
+                with tracer.stage("sync.upload"):   # pageable: returns once copied
+                    frames = grays.to(self.device)
+                smalls, changed = self._dedup(frames, prev_small, tracer)
             prev_small = smalls[-1]
             for i in np.nonzero(changed)[0]:
                 pending.append((batch[i], frames[i]))
@@ -639,11 +667,15 @@ class MatchingEngine:
             flush_matches()
             save_checkpoint()
 
-        for sample in samples:
-            batch.append(_Sample(*sample))
-            flush_dedup()
-        flush_dedup(force=True)
-        flush_matches(force=True)
+        self._tracer = tracer
+        try:
+            for sample in samples:
+                batch.append(_Sample(*sample))
+                flush_dedup()
+            flush_dedup(force=True)
+            flush_matches(force=True)
+        finally:
+            self._tracer = DISABLED
         save_checkpoint()
         reporter(processed, max(frames_total, processed), "Finished!")
         return results

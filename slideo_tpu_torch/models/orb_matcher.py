@@ -14,6 +14,13 @@ JAX package takes it, else frame by frame (``match_frame``).
 A frame that matches nothing gets slide -1. The JAX package picks the
 frame's query bucket with ``lax.switch`` on device; here the host reads the
 valid keypoint count and picks it.
+
+Given a ``StageTracer``, the matcher times its steps as stages: per frame
+``match.detect``, ``sync.count`` (the read of the valid count),
+``match.describe``, ``match.table``, ``match.draws``, ``match.select``,
+``match.ransac`` and ``match.verify`` (with three ``sync.pick`` inside it,
+the host's reads of the winner's index), and per screened batch
+``match.screen``. They wrap the code and change nothing it computes.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from ..config import SlideoConfig
 from ..ops import features as features_ops
 from ..ops import hamming, image, ransac, select, top_k, verify
 from ..ops.features import Features, extract_features
+from ..utils.trace import DISABLED, StageTracer
 
 __all__ = [
     "SlideIndex",
@@ -116,6 +124,7 @@ def cascade_from_table(
     slide_smalls: torch.Tensor,
     slide_hw: tuple[int, int],
     cfg: SlideoConfig,
+    tracer: StageTracer = DISABLED,
 ) -> FrameMatch:
     """The verification cascade after the table (ratio filter -> winner).
 
@@ -123,54 +132,68 @@ def cascade_from_table(
     in the engine; C = min(top_slides, table columns)).
     """
     mcfg = cfg.match
-    cs = select.select_candidates_table(table, feats.valid, mcfg)
-    cand_pts = slide_pts[cs.slide_ids.long()]                          # [C, K, 2]
-    src = torch.gather(cand_pts, 1, cs.train_ids.long()[..., None].expand(-1, -1, 2))
-    dst = feats.pts[cs.query_ids.long()]                               # [C, M, 2]
-    valid = cs.match_valid & cs.cand_valid[:, None]
-    rr = ransac.ransac_similarity(src, dst, valid, u, mcfg)
+    with tracer.stage("match.select"):
+        cs = select.select_candidates_table(table, feats.valid, mcfg)
+        cand_pts = slide_pts[cs.slide_ids.long()]                      # [C, K, 2]
+        src = torch.gather(cand_pts, 1, cs.train_ids.long()[..., None].expand(-1, -1, 2))
+        dst = feats.pts[cs.query_ids.long()]                           # [C, M, 2]
+        valid = cs.match_valid & cs.cand_valid[:, None]
+    with tracer.stage("match.ransac"):
+        rr = ransac.ransac_similarity(src, dst, valid, u, mcfg)
 
-    # Rating cascade (lib.rs:329-333): top-10 by inliers, floor 50,
-    # competitiveness 0.2 of the best rating.
-    top_rating, top_idx = top_k(rr.rating, min(mcfg.top_rated, rr.rating.shape[0]))
-    best_rating = top_rating[0]
-    retain = (top_rating > mcfg.min_rating) & (
-        top_rating / torch.clamp(best_rating, min=1e-9) > mcfg.min_rating_ratio
-    )
-    retain &= (rr.ok & cs.cand_valid)[top_idx]
-    top_t = ransac.Similarity(*(f[top_idx] for f in rr.transform))
-    top_slides = cs.slide_ids[top_idx]
-    sims = verify.warp_similarity(
-        frame_small, frame_hw, top_t, slide_smalls, top_slides, slide_hw,
-        cfg.video.small_image_area, stride=mcfg.verify_stride,
-    )
-    sims = torch.where(retain, sims, -torch.inf)
+        # Rating cascade (lib.rs:329-333): top-10 by inliers, floor 50,
+        # competitiveness 0.2 of the best rating.
+        top_rating, top_idx = top_k(rr.rating, min(mcfg.top_rated, rr.rating.shape[0]))
+        best_rating = top_rating[0]
+        retain = (top_rating > mcfg.min_rating) & (
+            top_rating / torch.clamp(best_rating, min=1e-9) > mcfg.min_rating_ratio
+        )
+        retain &= (rr.ok & cs.cand_valid)[top_idx]
+    with tracer.stage("match.verify"):
+        top_t = ransac.Similarity(*(f[top_idx] for f in rr.transform))
+        top_slides = cs.slide_ids[top_idx]
+        sims = verify.warp_similarity(
+            frame_small, frame_hw, top_t, slide_smalls, top_slides, slide_hw,
+            cfg.video.small_image_area, stride=mcfg.verify_stride,
+        )
+        sims = torch.where(retain, sims, -torch.inf)
 
-    # Final pick (lib.rs:370-383): max similarity, must exceed 0.5.
-    win = torch.argmax(sims)
-    win_sim = sims[win]
-    accept = win_sim > mcfg.min_similarity
-    return FrameMatch(
-        slide=torch.where(accept, top_slides[win], -1).to(torch.int32),
-        similarity=win_sim,
-        rating=top_rating[win],
-    )
+        # Final pick (lib.rs:370-383): max similarity, must exceed 0.5.
+        # Each index by the 0-dim ``win`` reads it on the host.
+        win = torch.argmax(sims)
+        with tracer.stage("sync.pick"):
+            win_sim = sims[win]
+        accept = win_sim > mcfg.min_similarity
+        with tracer.stage("sync.pick"):
+            win_slide = top_slides[win]
+        with tracer.stage("sync.pick"):
+            win_rating = top_rating[win]
+        return FrameMatch(
+            slide=torch.where(accept, win_slide, -1).to(torch.int32),
+            similarity=win_sim,
+            rating=win_rating,
+        )
 
 
-def _frame_features(frame: torch.Tensor, cfg: SlideoConfig) -> tuple[Features, torch.Tensor]:
+def _frame_features(
+    frame: torch.Tensor, cfg: SlideoConfig, tracer: StageTracer = DISABLED
+) -> tuple[Features, torch.Tensor]:
     """The frame's features at its query bucket and its verification
     thumbnail: pyramid, detect, describe, thumbnail of atlas level 0 (the
     frame's pixels)."""
     h, w = frame.shape
-    meta = features_ops.pyramid_meta(h, w, cfg.orb)
-    atlas = features_ops.build_pyramid(frame.to(torch.float32), cfg.orb)
-    kps = features_ops.detect_pyramid(atlas, meta, cfg.orb)
-    count = int(kps.valid.sum())
-    q = next(b for b in _query_buckets(cfg) if b >= count or b == cfg.orb.max_keypoints)
-    feats = features_ops.describe(atlas, meta, kps, q, cfg.orb)
-    frame_small = image.to_small_image(
-        atlas[:h, :w].to(torch.float32), cfg.video.small_image_area
-    )
+    with tracer.stage("match.detect"):
+        meta = features_ops.pyramid_meta(h, w, cfg.orb)
+        atlas = features_ops.build_pyramid(frame.to(torch.float32), cfg.orb)
+        kps = features_ops.detect_pyramid(atlas, meta, cfg.orb)
+    with tracer.stage("sync.count"):
+        count = int(kps.valid.sum())
+    with tracer.stage("match.describe"):
+        q = next(b for b in _query_buckets(cfg) if b >= count or b == cfg.orb.max_keypoints)
+        feats = features_ops.describe(atlas, meta, kps, q, cfg.orb)
+        frame_small = image.to_small_image(
+            atlas[:h, :w].to(torch.float32), cfg.video.small_image_area
+        )
     return feats, frame_small
 
 
@@ -183,13 +206,16 @@ def _cascade(
     index: SlideIndex,
     slide_hw: tuple[int, int],
     cfg: SlideoConfig,
+    tracer: StageTracer = DISABLED,
 ) -> FrameMatch:
     """``cascade_from_table`` with the engine's RANSAC draws for the
     table's min(top_slides, columns) candidates."""
-    n_cand = min(cfg.match.top_slides, table.dist.shape[1])
-    u = ransac.uniform_draws(n_cand, cfg.match, frame_seed, feats.desc.device)
+    with tracer.stage("match.draws"):
+        n_cand = min(cfg.match.top_slides, table.dist.shape[1])
+        u = ransac.uniform_draws(n_cand, cfg.match, frame_seed, feats.desc.device)
     return cascade_from_table(
-        frame_small, frame_hw, u, feats, table, index.pts, index.smalls, slide_hw, cfg
+        frame_small, frame_hw, u, feats, table, index.pts, index.smalls, slide_hw, cfg,
+        tracer=tracer,
     )
 
 
@@ -199,6 +225,7 @@ def match_frame(
     index: SlideIndex,
     slide_hw: tuple[int, int],
     cfg: SlideoConfig,
+    tracer: StageTracer = DISABLED,
 ) -> FrameMatch:
     """Match one [H, W] grayscale frame against the deck; ``frame_seed``
     (the frame index) seeds the frame's RANSAC draws. A screened deck takes
@@ -206,12 +233,14 @@ def match_frame(
     JAX package's ``match_frame`` does; ``match_frames`` takes the batched
     rule where the JAX package does."""
     n_slides, k_per_slide = index.pts.shape[0], index.pts.shape[1]
-    feats, frame_small = _frame_features(frame, cfg)
-    table = hamming.match_table_frame(
-        feats.desc, feats.score, index.desc_index, n_slides, k_per_slide, cfg.match,
-    )
+    feats, frame_small = _frame_features(frame, cfg, tracer)
+    with tracer.stage("match.table"):
+        table = hamming.match_table_frame(
+            feats.desc, feats.score, index.desc_index, n_slides, k_per_slide, cfg.match,
+        )
     return _cascade(
-        frame_small, tuple(frame.shape), frame_seed, feats, table, index, slide_hw, cfg
+        frame_small, tuple(frame.shape), frame_seed, feats, table, index, slide_hw, cfg,
+        tracer,
     )
 
 
@@ -221,27 +250,30 @@ def _match_frames_screened_batch(
     index: SlideIndex,
     slide_hw: tuple[int, int],
     cfg: SlideoConfig,
+    tracer: StageTracer = DISABLED,
 ) -> FrameMatch:
     """Screened-deck batch path (``orb_matcher.py:349-435``): per-frame
     features -> ONE stage-1 sweep over the index for all frames'
     strongest queries -> per frame, the exact table over its candidate
     slides and the cascade."""
     n_slides, k_per_slide = index.pts.shape[0], index.pts.shape[1]
-    front = [_frame_features(f, cfg) for f in frames]
-    qdesc = torch.stack([
-        hamming.screen_queries(ft.desc, ft.score, ft.valid, cfg.match) for ft, _ in front
-    ])
-    cand = hamming.screen_slides_batched(
-        qdesc, index.desc_index, n_slides, k_per_slide, cfg.match
-    )
+    front = [_frame_features(f, cfg, tracer) for f in frames]
+    with tracer.stage("match.screen"):
+        qdesc = torch.stack([
+            hamming.screen_queries(ft.desc, ft.score, ft.valid, cfg.match) for ft, _ in front
+        ])
+        cand = hamming.screen_slides_batched(
+            qdesc, index.desc_index, n_slides, k_per_slide, cfg.match
+        )
     results = []
     for (feats, frame_small), cand_i, seed in zip(front, cand, frame_seeds):
-        table = hamming.match_table(
-            feats.desc, index.desc_index, n_slides, k_per_slide, slide_ids=cand_i
-        )
+        with tracer.stage("match.table"):
+            table = hamming.match_table(
+                feats.desc, index.desc_index, n_slides, k_per_slide, slide_ids=cand_i
+            )
         results.append(_cascade(
             frame_small, tuple(frames.shape[1:]), int(seed), feats, table, index,
-            slide_hw, cfg,
+            slide_hw, cfg, tracer,
         ))
     return FrameMatch(*(torch.stack(field) for field in zip(*results)))
 
@@ -252,8 +284,10 @@ def match_frames(
     index: SlideIndex,
     slide_hw: tuple[int, int],
     cfg: SlideoConfig,
+    tracer: StageTracer = DISABLED,
 ) -> FrameMatch:
-    """Match a [B, H, W] batch; fields come back [B].
+    """Match a [B, H, W] batch; fields come back [B]; ``tracer`` times the
+    matcher's stages (see the module's docstring).
 
     Routed as the JAX package routes it (``orb_matcher.py:454-463``): decks
     above ``cfg.match.screen_above_slides`` take the screened batch path
@@ -266,8 +300,8 @@ def match_frames(
     mcfg = cfg.match
     if (n_slides > mcfg.screen_above_slides and mcfg.screen_bits == hamming.SCREEN_BITS
             and k_per_slide % 128 == 0):
-        return _match_frames_screened_batch(frames, frame_seeds, index, slide_hw, cfg)
+        return _match_frames_screened_batch(frames, frame_seeds, index, slide_hw, cfg, tracer)
     results = [
-        match_frame(f, int(s), index, slide_hw, cfg) for f, s in zip(frames, frame_seeds)
+        match_frame(f, int(s), index, slide_hw, cfg, tracer) for f, s in zip(frames, frame_seeds)
     ]
     return FrameMatch(*(torch.stack(field) for field in zip(*results)))
