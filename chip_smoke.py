@@ -28,7 +28,13 @@ Phases:
    (10 candidates at stride 2, one mapping partly outside the frame), K6h
    (K6's homography form: 10 perspective candidates at stride 2, one
    mapping partly outside, one whose denominator crosses zero inside the
-   grid; timed against ``grid_sample`` on the same points).
+   grid; timed against ``grid_sample`` on the same points), and the RANSAC
+   kernel (``csrc/ransac.cu``) on the cascade's call for a frame's matches
+   against the 64-slide deck (40 candidates x 512 match slots, 512 draws):
+   ok, the winning hypotheses and ratings equal to the plain version's,
+   the transform within 1e-3, every output bit-equal to ``ransac_replay``
+   (a numpy replay of the kernel's arithmetic and sum order), and a second
+   launch bit-identical. Every engine run below must launch it.
 4. The exact-table path: a synthetic 64-slide 1080x1920 deck indexed by
    ``MatchingEngine``, 88 sampled 1080p frames (runs of warped slides,
    noise, blank) streamed through ``match_samples``, the timeline written
@@ -150,6 +156,13 @@ strided and listed forms at 64 frames.
 for versions of ``csrc/orb.cu`` (the current launcher, or the earlier one
 that takes patch origins): ptxas's resources and SASS counts, every K3+K4
 case of ``orb_cases``, device ms at the three describe shapes.
+``python3 chip_smoke.py --compare-ransac SOURCE [SOURCE ...]`` does the
+same for versions of ``csrc/ransac.cu``: ptxas's resources and SASS
+counts, then every case of ``ransac_cases`` (two frames' matches at C = 40
+and C = 16, M = 512, H = 512; H = 256 and 1,200; C = 1; candidates with
+one and no valid point; tied best counts; M = 2,048) held to the plain
+version and bit for bit to ``ransac_replay``, and call, device, plain and
+bound ms at C = 40 and C = 16.
 
 Every path (phases 4, 5 screened and pre-vote, 6a, 6b, 7's profile, 8a,
 8b screened and exact, 9's three warm runs, 10's two runs) runs with the
@@ -437,6 +450,140 @@ def adversarial_table_case(torch, dev, seed: int):
             torch.from_numpy(cand).to(dev))
 
 
+RANSAC_SOURCE = Path(__file__).resolve().parent / "slideo_tpu_torch/csrc/ransac.cu"
+
+
+def ransac_constants(text: str) -> dict:
+    """The block shapes of a version of csrc/ransac.cu: its ``constexpr
+    int`` constants (HYP_WARPS, HYP_PER_WARP, REFINE_THREADS, ...)."""
+    import re
+
+    found = {k: v for k, v in re.findall(r"constexpr int (\w+) = (\d+|0x[0-9A-Fa-f]+);", text)}
+    return {k: int(v, 0) for k, v in found.items()}
+
+
+def ransac_replay(src, dst, valid, u, threshold: float, n_refine: int, consts: dict) -> dict:
+    """A numpy float32 replay of csrc/ransac.cu on [C, M, 2] ``src`` /
+    ``dst``, [C, M] ``valid`` and [C, H, 2] ``u``: pass 1's hypotheses,
+    counts and per-block packed keys (``consts``: the source's block
+    shapes), the decode of their max, and pass 2's refinements with each
+    block sum in the kernel's order (each thread's points in turn, the
+    warp's xor fold, the warp sums in warp order). Every float32 operation
+    is the kernel's, rounded alike, so on the same inputs the replay gives
+    the kernel's bits. Returns a, b, tx, ty, rating [C] float32, ok [C]
+    bool, inliers [C, M] bool, winner and count [C] int (-1: none), and
+    each scored hypothesis' count, counts [C, n_used] (-1: failed)."""
+    f32 = np.float32
+    src, dst, u = (np.asarray(x, f32) for x in (src, dst, u))
+    valid = np.asarray(valid, bool)
+    n_cand, m = valid.shape
+    n_hyp = u.shape[1]
+    used = min(max(n_hyp // 500, 1) * 500, n_hyp)
+    per_block = consts["HYP_WARPS"] * consts["HYP_PER_WARP"]
+    threads, top = consts["REFINE_THREADS"], consts["MAX_HYPOTHESES"]
+    thr2, den_min = f32(float(threshold) ** 2), f32(1e-9)
+    out = {k: np.zeros(n_cand, f32) for k in ("a", "b", "tx", "ty", "rating")}
+    out.update(ok=np.zeros(n_cand, bool), inliers=np.zeros((n_cand, m), bool),
+               winner=np.full(n_cand, -1), count=np.full(n_cand, -1),
+               counts=np.zeros((n_cand, used), np.int64))
+    lanes = np.arange(32)
+
+    def block_sum(vals, take):
+        acc = np.zeros(threads, f32)
+        for j0 in range(0, m, threads):
+            i = j0 + np.arange(threads)
+            live = i < m
+            i = np.minimum(i, m - 1)
+            acc = np.where(live & take[i], acc + vals[i], acc)
+        warps = acc.reshape(-1, 32)
+        for off in (16, 8, 4, 2, 1):
+            warps = warps + warps[:, lanes ^ off]
+        total = warps[0, 0]
+        for w in range(1, warps.shape[0]):
+            total = f32(total + warps[w, 0])
+        return total
+
+    with np.errstate(all="ignore"):
+        for c in range(n_cand):
+            sx, sy, dx, dy, v = src[c, :, 0], src[c, :, 1], dst[c, :, 0], dst[c, :, 1], valid[c]
+            n_valid = int(v.sum())
+
+            def draw(x):
+                return np.minimum((x * f32(n_valid)).astype(np.int32), max(n_valid - 1, 0))
+
+            def fit_two(i0, i1):
+                dpx, dpy = sx[i1] - sx[i0], sy[i1] - sy[i0]
+                dqx, dqy = dx[i1] - dx[i0], dy[i1] - dy[i0]
+                den = dpx * dpx + dpy * dpy
+                den_c = np.where(den < den_min, den_min, den)
+                a = (dqx * dpx + dqy * dpy) / den_c
+                b = (dqy * dpx - dqx * dpy) / den_c
+                return (a, b, dx[i0] - (a * sx[i0] - b * sy[i0]),
+                        dy[i0] - (b * sx[i0] + a * sy[i0]), den > den_min)
+
+            def inliers_of(a, b, tx, ty):
+                a, b, tx, ty = (np.asarray(f, f32)[..., None] for f in (a, b, tx, ty))
+                ex = ((a * sx - b * sy) + tx) - dx
+                ey = ((b * sx + a * sy) + ty) - dy
+                return ((ex * ex + ey * ey) < thr2) & v
+
+            i0, i1 = draw(u[c, :used, 0]), draw(u[c, :used, 1])
+            *hyp, fit_ok = fit_two(i0, i1)
+            hyp_ok = fit_ok & (i0 != i1) & (n_valid >= 2)
+            counts = out["counts"][c] = np.where(hyp_ok, inliers_of(*hyp).sum(-1), -1)
+            keys = ((counts + 1) << 16) | (top - np.arange(used))
+            block_keys = [keys[b0:b0 + per_block].max() for b0 in range(0, used, per_block)]
+            key = max(block_keys, default=0)
+            count, h = (key >> 16) - 1, top - (key & 0xFFFF)
+            t = [f32(0)] * 4
+            if count >= 0:
+                t = [f32(f[0]) for f in fit_two(draw(u[c, h:h + 1, 0]), draw(u[c, h:h + 1, 1]))[:4]]
+            found = count >= 2
+            for _ in range(n_refine):
+                inl = inliers_of(*t)
+                s = [block_sum(x, inl) for x in (np.ones(m, f32), sx, sy, dx, dy)]
+                wsum = s[0] if s[0] >= den_min else den_min
+                pmx, pmy, qmx, qmy = (x / wsum for x in s[1:])
+                pcx, pcy, qcx, qcy = sx - pmx, sy - pmy, dx - qmx, dy - qmy
+                den = block_sum(pcx * pcx + pcy * pcy, inl)
+                na = block_sum(qcx * pcx + qcy * pcy, inl)
+                nb = block_sum(qcy * pcx - qcx * pcy, inl)
+                if den > den_min and found:
+                    a, b = na / den, nb / den
+                    t = [a, b, qmx - (a * pmx - b * pmy), qmy - (b * pmx + a * pmy)]
+            inl = inliers_of(*t) & found
+            for k, f in zip(("a", "b", "tx", "ty"), t):
+                out[k][c] = f
+            out["rating"][c] = inl.sum()
+            out["ok"][c], out["inliers"][c] = found, inl
+            out["winner"][c], out["count"][c] = (h, count) if count >= 0 else (-1, -1)
+    return out
+
+
+def ransac_synthetic(seed: int, c: int, m: int):
+    """Random RANSAC inputs (src, dst [c, m, 2] float32, valid [c, m] bool):
+    each candidate's points under a similarity (rotation up to 10 degrees,
+    scale 0.85-1.1, shift up to 30 px) with noise of sigma 0.7 px, up to
+    half its valid points replaced by outliers, its valid points a prefix
+    of random length; candidate 3 (where c > 3) has one valid point."""
+    rng = np.random.RandomState(seed)
+    src = (rng.rand(c, m, 2) * 400).astype(np.float32)
+    dst = np.empty_like(src)
+    n_valid = rng.randint(m // 4, m + 1, c)
+    if c > 3:
+        n_valid[3] = 1
+    for i in range(c):
+        th, sc = np.deg2rad(rng.uniform(-10, 10)), rng.uniform(0.85, 1.1)
+        a, b = sc * np.cos(th), sc * np.sin(th)
+        dst[i, :, 0] = a * src[i, :, 0] - b * src[i, :, 1] + rng.uniform(-30, 30)
+        dst[i, :, 1] = b * src[i, :, 0] + a * src[i, :, 1] + rng.uniform(-30, 30)
+        n_out = rng.randint(0, n_valid[i] // 2 + 1)
+        dst[i] += rng.randn(m, 2).astype(np.float32) * 0.7
+        dst[i, n_valid[i] - n_out:n_valid[i]] = rng.rand(n_out, 2) * 400
+    valid = np.arange(m)[None, :] < n_valid[:, None]
+    return src, dst, valid
+
+
 def verify_transforms(torch, dev, t: int, seed: int = 7):
     """``t`` similarity transforms (full-res slide -> frame coords) like the
     ones RANSAC hands verification: rotation up to 3 degrees, scale 0.9-1.0,
@@ -511,7 +658,8 @@ def phase_kernels(torch, deck: np.ndarray, frame: np.ndarray, seed: int, smi: st
     """Each kernel against its plain version at main-path shapes."""
     from slideo_tpu_torch import DEFAULT_CONFIG
     from slideo_tpu_torch.models import orb_matcher
-    from slideo_tpu_torch.ops import cuda_orb, cuda_table, cuda_warp, features, image, verify
+    from slideo_tpu_torch.ops import (cuda_orb, cuda_table, cuda_warp, features, image, ransac,
+                                      verify)
 
     cfg = DEFAULT_CONFIG
     dev = torch.device("cuda")
@@ -623,6 +771,19 @@ def phase_kernels(torch, deck: np.ndarray, frame: np.ndarray, seed: int, smi: st
         "warp_sample", "warp.cu", "slideo_tpu/ops/pallas_warp.py:86", err, ms, dev_ms,
         bound(small.numel() * 4 + 16 * got.shape[0] + 4 * n_pt, 32 * n_pt, "f32")))
     rows.append(k6h_case(torch, small, grid, smi))
+
+    # RANSAC: the cascade's call on this frame's matches (40 candidates x
+    # 512 match slots, 512 draws), held to the plain version and the
+    # replay, and timed.
+    src, dst, valid = ransac_inputs(torch, index, [frame], cfg)[0]
+    args = (src, dst, valid, ransac.uniform_draws(src.shape[0], cfg.match, seed, dev))
+    err = check_ransac(torch, RANSAC_TIMED[0], args, ransac_constants(RANSAC_SOURCE.read_text()),
+                       "csrc/ransac.cu")
+    timed = time_ransac(torch, RANSAC_TIMED[0], args, smi)
+    rows.append(kernel_row(
+        "ransac_similarity", "ransac.cu",
+        "none: the JAX package leaves ransac_similarity to XLA (slideo_tpu/ops/ransac.py:106)", err,
+        timed["ms"], timed["dev"], timed["cost"], shape=RANSAC_TIMED[0]))
     for r in rows:
         print_row(r, smi)
     return rows
@@ -1287,6 +1448,191 @@ def phase_compare_screen(torch, sources: list[str], seed: int, smi: str) -> None
             + f" ({smi})")
 
 
+def ransac_inputs(torch, index, frames: list, cfg) -> list:
+    """The cascade's RANSAC inputs (src, dst [C, M, 2], valid [C, M]) of
+    each frame against a deck's ``SlideIndex``, formed as
+    ``orb_matcher.cascade_from_table`` forms them: C = min(top_slides,
+    slides), M = max_matches_per_slide."""
+    from slideo_tpu_torch.models import orb_matcher
+    from slideo_tpu_torch.ops import hamming, select
+
+    dev = torch.device("cuda")
+    n_slides, k = index.pts.shape[0], index.pts.shape[1]
+    out = []
+    for frame in frames:
+        feats, _ = orb_matcher._frame_features(torch.from_numpy(frame).to(dev), cfg)
+        table = hamming.match_table_frame(feats.desc, feats.score, index.desc_index, n_slides, k,
+                                          cfg.match)
+        cs = select.select_candidates_table(table, feats.valid, cfg.match)
+        cand_pts = index.pts[cs.slide_ids.long()]
+        src = torch.gather(cand_pts, 1, cs.train_ids.long()[..., None].expand(-1, -1, 2))
+        out.append((src, feats.pts[cs.query_ids.long()], cs.match_valid & cs.cand_valid[:, None]))
+    return out
+
+
+# The main path's RANSAC shapes, timed: 40 candidates of a 64-slide deck,
+# 16 survivors of a screened deck; M = 512, H = 512.
+RANSAC_TIMED = ("C=40 M=512 H=512", "C=16 M=512 H=512")
+
+
+def ransac_cases(torch, seed: int) -> list:
+    """(label, (src, dst, valid, u)) of the RANSAC comparison: two frames'
+    matches at each of ``RANSAC_TIMED`` (a 64-slide ``make_deck`` deck, and
+    16 slides of ``make_reveal_deck``'s near-duplicate families, the
+    screened path's survivors), the engine's draws; then the edges on the
+    first: H = 256 and 1,200, C = 1, a candidate with one valid point and
+    one with none, every draw of the first 250 repeated at h + 250 (each
+    best count tied with a later copy), and random matches at M = 2,048."""
+    from slideo_tpu_torch import DEFAULT_CONFIG
+    from slideo_tpu_torch.models import orb_matcher
+    from slideo_tpu_torch.ops import ransac
+
+    cfg = DEFAULT_CONFIG
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    decks = (make_deck(rng, N_SLIDES), make_reveal_deck(rng, 4)[:16])
+    cases = []
+    for label, deck in zip(RANSAC_TIMED, decks):
+        picks = rng.choice(len(deck), 2, replace=False)
+        frames = [with_noise(warp(deck[i], rng), rng, 1.5) for i in picks]
+        index = orb_matcher.build_slide_index(deck, cfg, dev)
+        for j, (src, dst, valid) in enumerate(ransac_inputs(torch, index, frames, cfg)):
+            u = ransac.uniform_draws(src.shape[0], cfg.match, seed + j, dev)
+            want = (min(cfg.match.top_slides, len(deck)), cfg.match.max_matches_per_slide)
+            check(tuple(src.shape[:2]) == want, f"RANSAC inputs {tuple(src.shape)} are not {label}")
+            cases.append((f"{label} frame {j}", (src, dst, valid, u)))
+    src, dst, valid, u = cases[0][1]
+    c = src.shape[0]
+    few = valid.clone()
+    few[0] = False
+    few[0, 0] = True
+    few[1] = False
+    tied = u.clone()
+    tied[:, 250:500] = u[:, :250]
+    big = [torch.from_numpy(x).to(dev) for x in ransac_synthetic(seed, 8, 2048)]
+    cases += [
+        ("H=256", (src, dst, valid, torch.rand((c, 256, 2), generator=gen, device=dev))),
+        ("H=1200", (src, dst, valid, torch.rand((c, 1200, 2), generator=gen, device=dev))),
+        ("C=1", (src[:1], dst[:1], valid[:1], u[:1])),
+        ("fewer than two valid points", (src, dst, few, u)),
+        ("tied best counts", (src, dst, valid, tied)),
+        ("M=2048 random", (*big, torch.rand((8, 512, 2), generator=gen, device=dev))),
+    ]
+    return cases
+
+
+def check_ransac(torch, label: str, args: tuple, consts: dict, tag: str) -> float:
+    """The kernel on one case against the plain version (ok, the winning
+    hypothesis and rating equal, the transform within 1e-3) and, bit for
+    bit, against ``ransac_replay`` with ``consts``; one launch a call.
+    Returns the transform's largest difference from the plain version."""
+    from slideo_tpu_torch import DEFAULT_CONFIG, _kernels
+    from slideo_tpu_torch.ops import cuda_ransac, ransac
+
+    mcfg = DEFAULT_CONFIG.match
+    before = _kernels.launches["ransac"]
+    got, winner = cuda_ransac.ransac_with_winner(*args, mcfg)
+    check(_kernels.launches["ransac"] == before + 1, f"{tag} {label}: not one ransac launch")
+    routed = ransac.ransac_similarity(*args, mcfg)
+    check(_kernels.launches["ransac"] == before + 2, f"{tag} {label}: a CUDA tensor took the plain version")
+    want = ransac.ransac_similarity_plain(*args, mcfg)
+    best_n, best_h, _ = ransac.score_hypotheses(*args, mcfg)
+    torch.cuda.synchronize()
+    rep = ransac_replay(*(x.cpu().numpy() for x in args), mcfg.ransac_threshold,
+                        mcfg.ransac_refine_iters, consts)
+    np_ = lambda x: x.cpu().numpy()  # noqa: E731
+    fields = ("a", "b", "tx", "ty")
+    err = max(float((g - w).abs().max()) if g.numel() else 0.0
+              for g, w in zip(got.transform, want.transform))
+    n_inl = int((got.inliers != want.inliers).sum())
+    print(f"[ransac] {tag} {label}: C={args[0].shape[0]} M={args[0].shape[1]} H={args[3].shape[1]}; "
+          f"ok {int(got.ok.sum())}, winners {np_(winner).tolist()[:8]}..., rating "
+          f"{np_(got.rating).tolist()[:8]}...; transform max_abs_err {err:.3g} against plain, "
+          f"{n_inl} inlier flags differ")
+    check(torch.equal(got.ok, want.ok), f"{tag} {label}: ok differs from the plain version")
+    check(np.array_equal(np_(winner), np.where(np_(best_n) >= 0, np_(best_h), -1)),
+          f"{tag} {label}: winning hypotheses differ from the plain version")
+    check(torch.equal(got.rating, want.rating), f"{tag} {label}: rating differs from the plain version")
+    check(err <= 1e-3, f"{tag} {label}: transform differs from the plain version by {err} > 1e-3")
+    for name, f in zip((*fields, "rating"), (*got.transform, got.rating)):
+        check(np.array_equal(np_(f), rep[name]), f"{tag} {label}: {name} is not the replay's")
+    check(np.array_equal(np_(got.inliers), rep["inliers"]) and np.array_equal(np_(winner), rep["winner"]),
+          f"{tag} {label}: inliers or winners are not the replay's")
+    for g, r in zip((*got.transform, got.rating, got.ok, got.inliers),
+                    (*routed.transform, routed.rating, routed.ok, routed.inliers)):
+        check(torch.equal(g, r), f"{tag} {label}: a second launch is not bit-identical")
+    return err
+
+
+def ransac_bound(c: int, m: int, n_hyp: int, n_refine: int) -> dict:
+    """Bound of one RANSAC call: reads the points (17 B each) and the scored
+    draws, writes the inliers and 25 B a candidate; a point test is 15 f32
+    operations (two products and two sums a coordinate, the difference,
+    two squares, a sum, a compare), a fit ~20, a refinement 34 a point."""
+    from slideo_tpu_torch.ops import ransac
+
+    used = ransac.n_scored(n_hyp)
+    ops = c * (used * (20 + 15 * m) + (n_refine * 34 + 15) * m)
+    return bound(c * m * 17 + c * used * 8 + c * m + 25 * c, ops, "f32")
+
+
+def time_ransac(torch, label: str, args: tuple, smi: str) -> dict:
+    """Call ms of the kernel and of the plain version, device ms of the
+    kernel, and the bound, on one case."""
+    from slideo_tpu_torch import DEFAULT_CONFIG
+    from slideo_tpu_torch.ops import cuda_ransac, ransac
+
+    mcfg = DEFAULT_CONFIG.match
+    fns = {"kernel": lambda: cuda_ransac.ransac_similarity(*args, mcfg),
+           "plain": lambda: ransac.ransac_similarity_plain(*args, mcfg)}
+    ms = cuda_ms(fns)
+    dev = device_ms({"kernel": fns["kernel"]}, ms)
+    c, m = args[2].shape
+    cost = ransac_bound(c, m, args[3].shape[1], mcfg.ransac_refine_iters)
+    print(f"[time] ransac_similarity {label}: kernel call {ms['kernel']:.4f} ms, device "
+          f"{dev['kernel']:.4f} ms; plain {ms['plain']:.4f} ms; bound {cost['bound_ms']:.4f} ms "
+          f"({cost['bound_by']}) ({smi})")
+    return dict(ms=ms, dev=dev, cost=cost)
+
+
+def phase_compare_ransac(torch, sources: list[str], seed: int, smi: str) -> None:
+    """Versions of csrc/ransac.cu side by side: each source (exporting
+    ``slideo_ransac`` in its C signature) is built into a library of its own,
+    ptxas's registers, spills and shared memory and its SASS counts are
+    printed; then in turns, forwards then backwards, each is held on every
+    case of ``ransac_cases`` to the plain version and bit for bit to
+    ``ransac_replay`` with the source's own block shapes, and timed at
+    ``RANSAC_TIMED`` (the first frame of each)."""
+    from slideo_tpu_torch import _kernels
+
+    libs = {}
+    for src in sources:
+        lib, resources, ops = compare_library(src, len(libs), ("slideo_ransac",))
+        print(f"[compare] {src}: {resources}; {sass_total(ops)} SASS instructions, " + ", ".join(
+            f"{op} {ops[op]}" for op in ("FADD", "FMUL", "FFMA", "MUFU", "VOTE", "POPC", "SHFL",
+                                         "LDS", "BAR", "ATOMS")))
+        libs[src] = (lib, ransac_constants(Path(src).read_text()))
+    cases = ransac_cases(torch, seed)
+    by_label = dict(cases)
+    times = {src: {label: [] for label in RANSAC_TIMED} for src in sources}
+    try:
+        for turn, names in enumerate((sources, sources[::-1])):
+            for src in names:
+                _kernels._lib, consts = libs[src]
+                print(f"[compare] {src}, turn {turn}")
+                for label, args in cases:
+                    check_ransac(torch, label, args, consts, src)
+                for label in RANSAC_TIMED:
+                    timed = time_ransac(torch, f"{src} {label}", by_label[f"{label} frame 0"], smi)
+                    times[src][label].append(timed["dev"]["kernel"])
+    finally:
+        _kernels._lib = None
+    for src in sources:
+        print(f"[compare] {src}: device ms " + "; ".join(
+            f"{label} {min(t):.4f}-{max(t):.4f}" for label, t in times[src].items()) + f" ({smi})")
+
+
 def phase_profiler_check(torch, smi: str) -> None:
     """K5 at Q=768 x 64 slides x 2048 slots (random +-1 rows): the graph
     replay's device ms against ``torch.profiler``'s kernel durations."""
@@ -1384,7 +1730,7 @@ def phase_slice(torch, deck: np.ndarray, runs, seed: int, smi: str, db_dir: Path
     from slideo_tpu_torch import DEFAULT_CONFIG
 
     out = drive_engine(torch, DEFAULT_CONFIG, deck, runs, seed, smi, "slice", db_dir=db_dir)
-    for name in ("fast", "orb", "table", "warp"):
+    for name in ("fast", "orb", "table", "warp", "ransac"):
         check(out["launches"][name] > 0, f"kernel {name} was never launched by the match path")
     check(out["launches"]["screen_prefix"] == 0, "the exact path launched the per-frame stage 1")
     return out
@@ -1553,7 +1899,7 @@ def phase_screened(torch, seed: int, smi: str) -> tuple[list, list, dict, dict]:
 
     # (c) + (e): the screened run through the engine.
     screened = drive_engine(torch, cfg, deck, runs, seed, smi, "screened")
-    for name in ("screen", "table", "fast", "orb", "warp"):
+    for name in ("screen", "table", "fast", "orb", "warp", "ransac"):
         check(screened["launches"][name] > 0, f"kernel {name} was never launched by the screened run")
     check(screened["launches"]["screen_strided"] == screened["launches"]["screen_listed"] == 0,
           "the single-stage screened run went through the pre-vote")
@@ -1695,7 +2041,7 @@ def phase_mesh(torch, deck: np.ndarray, runs, seed: int, smi: str, slice_out: di
           "the engine did not take the frame-parallel mesh")
     check(dp["timeline"] == slice_out["timeline"], "the frame-DP timeline differs from phase 4's")
     check(dp["matched"] == slice_out["matched"], "the frame-DP assignments differ from phase 4's")
-    for name in ("fast", "orb", "table", "warp"):
+    for name in ("fast", "orb", "table", "warp", "ransac"):
         check(dp["launches"][name] > 0, f"kernel {name} was never launched by the frame-DP run")
 
     # (b): the exact run's index over a 1 x 2 ("frames", "index") mesh.
@@ -2031,7 +2377,7 @@ def cache_case(torch, tag: str, cfg, deck: np.ndarray, pages: list, cold: dict, 
 
     run = drive_engine(torch, cfg, deck, cold["runs"], seed, smi, f"warm-{tag}", engine=warm,
                        strict=strict)
-    for name in ("warp_homography",) if sift else ("fast", "orb", "table", "warp"):
+    for name in ("warp_homography",) if sift else ("fast", "orb", "table", "warp", "ransac"):
         check(run["launches"][name] > 0, f"kernel {name} was never launched by the warm {tag} run")
     check(run["matched"] == cold["matched"], f"{tag}: the warm engine's rows differ from the cold run's")
     check(run["timeline"] == cold["timeline"], f"{tag}: the warm timeline differs from the cold one")
@@ -2298,6 +2644,9 @@ def main() -> None:
     ap.add_argument("--compare-orb", nargs="+", metavar="SOURCE",
                     help="only check and time these versions of csrc/orb.cu against each "
                          "other, then exit")
+    ap.add_argument("--compare-ransac", nargs="+", metavar="SOURCE",
+                    help="only check and time these versions of csrc/ransac.cu against the "
+                         "plain version and each other, then exit")
     args = ap.parse_args()
 
     import torch
@@ -2316,6 +2665,9 @@ def main() -> None:
         return
     if args.compare_orb:
         phase_compare_orb(torch, args.compare_orb, args.seed, smi)
+        return
+    if args.compare_ransac:
+        phase_compare_ransac(torch, args.compare_ransac, args.seed, smi)
         return
     rng = np.random.RandomState(args.seed)
     t0 = time.perf_counter()
@@ -2351,7 +2703,7 @@ def main() -> None:
                "warp_sample": "warp", "screen_scores": "screen", "fast_nms_batch": "fast_batch",
                "warp_sample_homography": "warp_homography",
                "screen_prevote_strided": "screen_strided", "screen_prevote_listed": "screen_listed",
-               "screen_prefix": "screen_prefix"}
+               "screen_prefix": "screen_prefix", "ransac_similarity": "ransac"}
     for r in rows:
         r["launches"] = (ip_launches["table"] if r["name"] == "match_table_shard"
                          else counted[by_name[r["name"]]])

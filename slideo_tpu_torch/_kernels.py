@@ -60,11 +60,14 @@ _SIGNATURES = {
     # img, h, w, hparams, n_t, sx, sy, inv_fx, inv_fy, out_h, out_w, stride,
     # out, stream
     "slideo_warp_sample_homography": (_P, _I, _I, _P, _I, _F, _F, _F, _F, _I, _I, _I, _P, _P),
+    # src, dst, valid, u, n_cand, m, n_hyp, n_used, thr2, n_refine, keys, out,
+    # inliers, ok, winner, stream
+    "slideo_ransac": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P),
 }
 
 launches: dict[str, int] = {
     "fast": 0, "fast_batch": 0, "orb": 0, "table": 0, "screen": 0, "screen_strided": 0,
-    "screen_listed": 0, "screen_prefix": 0, "warp": 0, "warp_homography": 0,
+    "screen_listed": 0, "screen_prefix": 0, "warp": 0, "warp_homography": 0, "ransac": 0,
 }
 
 _lib: ctypes.CDLL | None = None

@@ -6,6 +6,10 @@ refined with closed-form weighted least squares. The uniform draws ``u``
 are an input: JAX's threefry bits cannot be reproduced with a
 ``torch.Generator``, so the engine draws its own (``uniform_draws``) and
 parity tests hand in JAX's.
+
+``ransac_similarity`` (``cuda_ransac.ransac_similarity``) launches the
+RANSAC kernel, csrc/ransac.cu, on CUDA tensors and takes the plain version
+``ransac_similarity_plain`` on CPU tensors.
 """
 
 from __future__ import annotations
@@ -15,12 +19,16 @@ from typing import NamedTuple
 import torch
 
 from ..config import MatchConfig
+from .cuda_ransac import ransac_similarity
 
 __all__ = [
     "Similarity",
     "RansacResult",
     "apply_similarity",
+    "n_scored",
     "ransac_similarity",
+    "ransac_similarity_plain",
+    "score_hypotheses",
     "uniform_draws",
 ]
 
@@ -108,18 +116,23 @@ def uniform_draws(
     )
 
 
-def ransac_similarity(
+def n_scored(n_hyp: int) -> int:
+    """Hypotheses that take part: the JAX scan scores chunks of
+    ``_HYP_CHUNK``, so only the first ``max(H // 500, 1) * 500`` draws, at
+    most H."""
+    return min(max(n_hyp // _HYP_CHUNK, 1) * _HYP_CHUNK, n_hyp)
+
+
+def score_hypotheses(
     src: torch.Tensor,
     dst: torch.Tensor,
     valid: torch.Tensor,
     u: torch.Tensor,
     cfg: MatchConfig,
-) -> RansacResult:
-    """RANSAC similarity fits for C candidates at once.
-
-    src, dst [C, M, 2] (slide -> frame); valid [C, M] compacted to the front;
-    u [C, H, 2] uniform draws in [0, 1) picking each hypothesis' two points.
-    """
+) -> tuple[torch.Tensor, torch.Tensor, Similarity]:
+    """The first best of each candidate's scored hypotheses: its inlier
+    count [C] float32 (-1 where no hypothesis passed), its index [C] int64
+    (-1 there) and its transform (zeros there)."""
     c = src.shape[0]
     n_hyp = u.shape[1]
     n_valid = valid.sum(dim=-1).to(torch.int32)                     # [C]
@@ -135,13 +148,13 @@ def ransac_similarity(
     hyp, hyp_ok = _fit_two_points(p, q)                             # fields [C, H]
     hyp_ok = hyp_ok & distinct & enough
 
-    # The JAX scan scores hypotheses in chunks of _HYP_CHUNK and keeps the
-    # first best; only the first max(H // 500, 1) * 500 draws take part.
-    used = max(n_hyp // _HYP_CHUNK, 1) * _HYP_CHUNK
+    # In chunks of _HYP_CHUNK, keeping the first best, as the JAX scan does.
+    used = n_scored(n_hyp)
     best_n = torch.full((c,), -1.0, device=src.device)
+    best_h = torch.full((c,), -1, dtype=torch.int64, device=src.device)
     best_t = Similarity(*(torch.zeros(c, device=src.device) for _ in range(4)))
-    for h0 in range(0, min(used, n_hyp), _HYP_CHUNK):
-        h1 = min(h0 + _HYP_CHUNK, used, n_hyp)
+    for h0 in range(0, used, _HYP_CHUNK):
+        h1 = min(h0 + _HYP_CHUNK, used)
         t_chunk = Similarity(*(f[:, h0:h1] for f in hyp))
         inl = _inliers(
             t_chunk, src[:, None], dst[:, None], valid[:, None], cfg.ransac_threshold
@@ -156,7 +169,25 @@ def ransac_similarity(
             torch.where(better, cf.gather(1, chunk_best[:, None])[:, 0], bf)
             for cf, bf in zip(t_chunk, best_t)
         ))
+        best_h = torch.where(better, h0 + chunk_best, best_h)
         best_n = torch.maximum(best_n, chunk_n)
+    return best_n, best_h, best_t
+
+
+def ransac_similarity_plain(
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    valid: torch.Tensor,
+    u: torch.Tensor,
+    cfg: MatchConfig,
+) -> RansacResult:
+    """The plain version of ``ransac_similarity``: RANSAC similarity fits
+    for C candidates at once.
+
+    src, dst [C, M, 2] (slide -> frame); valid [C, M] compacted to the front;
+    u [C, H, 2] uniform draws in [0, 1) picking each hypothesis' two points.
+    """
+    best_n, _, best_t = score_hypotheses(src, dst, valid, u, cfg)
     found = best_n >= 2
 
     for _ in range(cfg.ransac_refine_iters):
