@@ -26,13 +26,38 @@ ROOT = Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
-def build_config(conf: dict):
-    """The port's ``SlideoConfig`` from a configuration file."""
-    from slideo_tpu_torch.config import MatchConfig, OrbConfig, SlideoConfig, VideoConfig
+# Keys of a configuration file that describe it and set nothing of the engine.
+DESCRIPTIVE = ("name", "source", "deployment", "deck", "assumed", "reduced", "reference")
 
-    orb = {k: tuple(v) if isinstance(v, list) else v for k, v in conf["orb"].items()}
-    return SlideoConfig(engine=conf["engine"], orb=OrbConfig(**orb), match=MatchConfig(**conf["match"]),
-                        video=VideoConfig(**conf["video"]))
+
+def build_config(conf: dict):
+    """The port's ``SlideoConfig`` from a configuration file: each section
+    (``orb``, ``sift``, ``match``, ``video``) builds the field of that name
+    (a list becomes a tuple), ``engine`` names the engine; a field the file
+    leaves out keeps its default. A top-level key that is neither such a
+    field nor one of ``DESCRIPTIVE``, or a key that its section lacks,
+    raises ValueError: the engine would run without it."""
+    import dataclasses
+
+    from slideo_tpu_torch.config import SlideoConfig
+
+    default = SlideoConfig()
+    fields = {f.name for f in dataclasses.fields(SlideoConfig)}
+    kwargs = {}
+    for key, value in conf.items():
+        if key in DESCRIPTIVE:
+            continue
+        if key not in fields:
+            raise ValueError(f"configuration {conf.get('name')!r}: unknown key {key!r}")
+        section = getattr(default, key)
+        if dataclasses.is_dataclass(section):
+            known = {f.name for f in dataclasses.fields(section)}
+            for k in value:
+                if k not in known:
+                    raise ValueError(f"configuration {conf.get('name')!r}: section {key!r} has no key {k!r}")
+            value = type(section)(**{k: tuple(v) if isinstance(v, list) else v for k, v in value.items()})
+        kwargs[key] = value
+    return SlideoConfig(**kwargs)
 
 
 class _Tracer:
@@ -58,31 +83,41 @@ class _Tracer:
         return span()
 
 
-def _shape_logger(log: list, active):
-    """Wrap the kernel entry points the matcher calls (``hamming``'s
-    ``match_table_scores`` and ``screen_scores``) to log each call's shapes
-    while ``active()``; returns a function that unwraps them."""
-    from slideo_tpu_torch.ops import hamming
+def _call_logger(log: list, active):
+    """Wrap each function that the per-layer metrics of ``portbench/metrics/``
+    declare in their ``LOGS`` so that, while ``active()``, each call appends
+    to ``log`` what each of the function's ``describe`` returns for the
+    call's arguments, unless None; returns a function that unwraps them."""
+    import importlib
 
-    table, screen = hamming.match_table_scores, hamming.screen_scores
+    from portbench.lib import spec
 
-    def table_logged(query, desc, valid, n_slides, k_per_slide, slide_ids=None, n_slots=None):
-        if active():
-            log.append(("table", query.shape[0], n_slides if slide_ids is None else slide_ids.shape[0],
-                        k_per_slide if n_slots is None else n_slots))
-        return table(query, desc, valid, n_slides, k_per_slide, slide_ids, n_slots)
+    targets: dict[tuple[str, str], list] = {}
+    for name in spec.metric_names():
+        for module, func, describe in getattr(spec.metric_module(name), "LOGS", ()):
+            describers = targets.setdefault((module, func), [])
+            if describe not in describers:
+                describers.append(describe)
 
-    def screen_logged(query, desc, valid, n_slides, k_per_slide, stride=1, slide_ids=None, n_slots=None):
-        if active():
-            single = stride == 1 and slide_ids is None and n_slots in (None, k_per_slide)
-            log.append(("screen" if single else "screen_other", query.shape[0], n_slides,
-                        k_per_slide, query.shape[1]))
-        return screen(query, desc, valid, n_slides, k_per_slide, stride, slide_ids, n_slots)
+    def logged(fn, describers):
+        def call(*args, **kwargs):
+            if active():
+                for describe in describers:
+                    entry = describe(*args, **kwargs)
+                    if entry is not None:
+                        log.append(entry)
+            return fn(*args, **kwargs)
+        return call
 
-    hamming.match_table_scores, hamming.screen_scores = table_logged, screen_logged
+    wrapped = []
+    for (module, func), describers in targets.items():
+        mod = importlib.import_module(module)
+        wrapped.append((mod, func, getattr(mod, func)))
+        setattr(mod, func, logged(getattr(mod, func), describers))
 
     def unwrap():
-        hamming.match_table_scores, hamming.screen_scores = table, screen
+        for mod, func, fn in reversed(wrapped):
+            setattr(mod, func, fn)
     return unwrap
 
 
@@ -204,7 +239,7 @@ def run(spec: dict, out) -> None:
     tracer = _Tracer() if spec["trace"] else None
     shapes: list = []
     prof_state = dict(prof=None, start=None, stop=None, mark=None)
-    unwrap = _shape_logger(shapes, lambda: prof_state["start"] is not None and prof_state["stop"] is None) \
+    unwrap = _call_logger(shapes, lambda: prof_state["start"] is not None and prof_state["stop"] is None) \
         if trace else None
     prof_from = t_start + spec["profile_at"] * spec["seconds"]
 

@@ -1,1 +1,1 @@
-"""The harness: data files by name, traffic, the reference and the comparison."""
+"""The harness: data files by name, traffic, and the comparison with the plain reference."""

@@ -3,7 +3,8 @@
 of clients and the cell's own parameters and limits;
 ``configs/<config>.json`` is the configuration as it is run;
 ``traffic/<mix>.json`` the mix's parameters; ``metrics/<metric>.py`` the
-reader of one per-layer metric."""
+reader of one per-layer metric; ``references/<name>.py`` the plain
+reference that judges a configuration."""
 
 from __future__ import annotations
 
@@ -29,6 +30,25 @@ def cell(name: str) -> dict:
     c["config"] = _load("configs", c["config"])
     c["traffic"] = _load("traffic", c["traffic"])
     return c
+
+
+def reference(conf: dict):
+    """The class ``Reference`` of the plain reference that judges the
+    configuration ``conf``: ``references/<name>.py``, where ``<name>`` is
+    its ``"reference"`` key, or else its ``"engine"`` (the contract is in
+    ``references/__init__.py``)."""
+    name = conf.get("reference", conf["engine"])
+    if not isinstance(name, str) or not name.isidentifier():
+        raise ValueError(f"reference name {name!r} is not a module name")
+    module = f"portbench.references.{name}"
+    try:
+        mod = importlib.import_module(module)
+    except ModuleNotFoundError as e:
+        if e.name != module:
+            raise
+        path = ROOT / "references" / f"{name}.py"
+        raise FileNotFoundError(f"no reference named {name!r} ({path.relative_to(ROOT.parent)})") from None
+    return mod.Reference
 
 
 def metric_module(name: str):

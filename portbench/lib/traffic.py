@@ -16,9 +16,11 @@ of ``noise_sigma``. The gain alternates between ``gain_low`` and
 one before it by more than the dedup threshold. Slides dwell ``dwell``
 samples each: on a ``lecture`` deck the pages in an order drawn from (seed,
 client); on a ``reveal`` deck the families in such an order, each family's
-members in reveal order. So every seed gives the same number of samples a
-slide, the same changed share and no-slide samples at the same positions;
-only the pixels change.
+members in reveal order. With ``hold`` (a screen recording: the screen
+shows a slide unchanged while it dwells) every sample of a dwell is the
+dwell's first sample, pixel for pixel, wherever the dwell's samples lie.
+So every seed gives the same number of samples a slide, the same changed
+share and no-slide samples at the same positions; only the pixels change.
 """
 
 from __future__ import annotations
@@ -70,6 +72,17 @@ class FilmedStream:
             return unit * self.deck["reveals"] + (j % self._per_unit) // self.dwell
         return unit
 
+    def source(self, k: int) -> int:
+        """The pool sample whose draws make sample ``k``: ``k`` in the pool
+        or, with ``hold``, a slide sample's dwell's first sample."""
+        k %= self.pool
+        pos = k % self.period
+        if not self.mix.get("hold") or pos >= self.per_period:
+            return k
+        j = k // self.period * self.per_period + pos
+        j -= j % self.dwell
+        return j // self.per_period * self.period + j % self.per_period
+
     def _homography(self, k: int) -> torch.Tensor:
         """Frame pixel -> page pixel map [3, 3] (float64) of sample ``k``."""
         m, (h, w) = self.mix, self.hw
@@ -107,15 +120,15 @@ class FilmedStream:
         ys, xs = torch.meshgrid(torch.arange(h, device=dev, dtype=torch.float32),
                                 torch.arange(w, device=dev, dtype=torch.float32), indexing="ij")
         for i, k in enumerate(ks):
-            page = self.page(k)
-            noise_g = seeds.generator(dev, self.seed, seeds.NOISE, self.client, k % self.pool)
+            page, k = self.page(k), self.source(k)
+            noise_g = seeds.generator(dev, self.seed, seeds.NOISE, self.client, k)
             if page == NOISE:
                 out[i] = torch.randint(0, 256, (h, w), generator=noise_g, device=dev).to(torch.uint8)
                 continue
             if page == BLANK:
                 out[i] = self.mix["blank_level"]
                 continue
-            hi = self._homography(k % self.pool).to(torch.float32).tolist()
+            hi = self._homography(k).to(torch.float32).tolist()
             den = hi[2][0] * xs + hi[2][1] * ys + hi[2][2]
             u = (hi[0][0] * xs + hi[0][1] * ys + hi[0][2]) / den
             v = (hi[1][0] * xs + hi[1][1] * ys + hi[1][2]) / den
@@ -123,7 +136,7 @@ class FilmedStream:
             grid = torch.stack([u / (w - 1) * 2 - 1, v / (h - 1) * 2 - 1], dim=-1)[None]
             img = F.grid_sample(deck[page].to(torch.float32)[None, None], grid, mode="bilinear",
                                 padding_mode="zeros", align_corners=True)[0, 0]
-            img = torch.where(inside, img, 230.0) * self.gain(k % self.pool)
+            img = torch.where(inside, img, 230.0) * self.gain(k)
             img = img + torch.randn((h, w), generator=noise_g, device=dev) * self.mix["noise_sigma"]
             out[i] = torch.round(img).clamp(0, 255).to(torch.uint8)
         return out

@@ -2,8 +2,9 @@
 ``screen_kernel`` in ``csrc/screen.cu``) reaches in the traced window: the
 least time of each call at its shapes (``peaks.screen_bound``: R query rows
 against every slot of every slide), summed, over the kernel's device time.
-Nothing to read when the profile's launches and the logged calls differ in
-number, or there are none."""
+The calls are logged at ``hamming.screen_scores`` (``LOGS``); only those of
+the single stage count. Nothing to read when the profile's launches and the
+logged calls differ in number, or there are none."""
 
 import re
 
@@ -11,6 +12,16 @@ from portbench.lib.peaks import screen_bound
 
 UNIT = "%"
 _KERNEL = re.compile(r"(^|[^A-Za-z0-9_])screen_kernel\b")
+
+
+def describe(query, desc, valid, n_slides, k_per_slide, stride=1, slide_ids=None, n_slots=None):
+    """("screen", rows, slides, slots, bits) of a call of the single stage
+    (every slot of every slide), "screen_other" for the other forms."""
+    single = stride == 1 and slide_ids is None and n_slots in (None, k_per_slide)
+    return ("screen" if single else "screen_other", query.shape[0], n_slides, k_per_slide, query.shape[1])
+
+
+LOGS = (("slideo_tpu_torch.ops.hamming", "screen_scores", describe),)
 
 
 def read(run):

@@ -17,9 +17,10 @@ is warm, and measures for ``--seconds`` seconds:
 
 With ``--trace 1`` it prints the per-layer metrics instead, each read by
 its module in ``portbench/metrics/``. Once the clients have ended, the
-plain reference (``lib/reference.py``) answers a sample of the frames
-decided in the window, drawn from the seed, and ``correct`` says whether
-the program's answers agree within the cell's limits. The last line of
+configuration's plain reference (``portbench/references/``) answers a
+sample of the frames decided in the window, drawn from the seed, and
+``correct`` says whether the program's answers agree within the cell's
+limits. The last line of
 standard output is the result.
 
 ``--clients n`` runs another number of clients than the cell's, for a

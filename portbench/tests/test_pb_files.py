@@ -8,7 +8,7 @@ from pathlib import Path
 
 import pytest
 
-from portbench.lib import spec
+from portbench.lib import check, spec
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -69,10 +69,12 @@ def test_every_configuration_and_cell_resolves_to_its_files():
         assert set(w) == {"name", "config", "traffic", "chips", "why"} and w["chips"] in (1, 4)
         cell = spec.cell(w["name"])
         assert cell["config"]["name"] == w["config"] and w["config"] in configs
+        assert callable(spec.reference(cell["config"]))
         assert cell["chips"] == w["chips"]
         assert json.loads((ROOT / "portbench" / "workloads" / f"{w['name']}.json").read_text())["traffic"] \
             == w["traffic"]
-        assert set(cell["limits"]) >= {"answer_gap_median", "answer_gap_max"}
+        assert set(cell["limits"]) & set(check.WIDEST) and set(cell["limits"]) & {"answer_gap_median", "slide_gap_median"}
+        assert set(cell["limits"]) <= set(check.numbers([])) - {"worst"}
     assert {c for w in BENCH["workloads"] for c in [w["config"]]} == set(configs)
 
 
@@ -112,14 +114,16 @@ def test_no_module_imports_jax_or_the_jax_package(path):
 
 def test_the_whole_name_is_compared():
     assert not {"slideo_tpu_torch"} & FORBIDDEN
-    from portbench.lib import check
-
     assert "slideo_tpu" in check.FORBIDDEN and "slideo_tpu_torch" not in check.FORBIDDEN
 
 
-@pytest.mark.parametrize("name", ["reference.py", "pages.py", "traffic.py", "peaks.py", "window.py", "seeds.py"])
+YARDSTICK = ["lib/pages.py", "lib/traffic.py", "lib/peaks.py", "lib/window.py", "lib/seeds.py"] + sorted(
+    p.relative_to(ROOT / "portbench").as_posix() for p in (ROOT / "portbench" / "references").glob("*.py"))
+
+
+@pytest.mark.parametrize("name", YARDSTICK)
 def test_the_yardstick_imports_nothing_of_the_port(name):
-    assert "slideo_tpu_torch" not in _imports(ROOT / "portbench" / "lib" / name)
+    assert "slideo_tpu_torch" not in _imports(ROOT / "portbench" / name)
 
 
 def test_nothing_reads_the_jax_benchmark():
@@ -128,3 +132,17 @@ def test_nothing_reads_the_jax_benchmark():
             continue
         text = path.read_text()
         assert "bench.py" not in text and "BENCH_r" not in text and "MULTICHIP" not in text, path
+
+
+@pytest.mark.parametrize("prog, want_sim, want_rating", [
+    (dict(changed=True, slide=9, similarity=0.9342, rating=512.0), 0.0889, 0.0),    # the grid's edge out on one side
+    (dict(changed=True, slide=9, similarity=0.8453, rating=511.0), 0.0, 1 / 512),   # one inlier more on one side
+    (dict(changed=True, slide=8, similarity=0.8453, rating=512.0), 1.0, 1.0),       # another slide
+    (dict(changed=False), 1.0, 1.0),                                                # dropped by the dedup
+])
+def test_the_widest_gaps(prog, want_sim, want_rating):
+    ref = dict(changed=True, slide=9, similarity=0.8453, rating=512.0, keypoints=2000, frame=268)
+    dropped = dict(changed=False, frame=269)
+    nums = check.numbers([(prog, ref, 9), (dict(changed=False), dropped, 9)])
+    assert nums["answer_gap_max"] == pytest.approx(want_sim, abs=1e-4)
+    assert nums["rating_answer_gap_max"] == pytest.approx(want_rating)

@@ -1,8 +1,10 @@
-"""Every seed gives the same work: as many samples a slide, every slide
-sample passed on by the dedup, no-slide samples at the same positions,
-and every slide frame far above the 768-keypoint query bucket. Held over
-8 seeds at reduced sizes, on the CPU, with the port's own dedup arithmetic
-and FAST keypoints."""
+"""Every seed gives the same work: as many samples a slide, no-slide
+samples at the same positions; in filmed traffic every slide sample passed
+on by the dedup and every slide frame far above the 768-keypoint query
+bucket; in screen-recorded traffic every sample of a dwell its first
+sample's pixels, and the same samples passed on. Held over 8 seeds at
+reduced sizes, on the CPU, with the port's own dedup arithmetic and FAST
+keypoints."""
 
 import pytest
 import torch
@@ -11,7 +13,7 @@ from portbench.lib import pages, spec
 from portbench.lib.traffic import BLANK, NOISE, FilmedStream
 
 SEEDS = [0, 1, 7, 2**31 - 1, 2**31 + 5, 123456789, 3**20, 2**40 + 17]
-CELLS = ["orb500-filmed-x4", "orb64-filmed-x4"]
+CELLS = ["orb500-filmed-x4", "orb64-filmed-x4", "orb64-screencap-x4"]
 
 
 def _stream(cell_name, seed, client, hw, n_pages=None):
@@ -84,3 +86,52 @@ def test_the_sparsest_slide_frames_fill_the_large_query_bucket(seed):
         atlas = build_pyramid(img, orb)
         count = int(detect_pyramid(atlas, pyramid_meta(*img.shape, orb), orb).valid.sum())
         assert count > 1.5 * orb.query_buckets[0], count
+
+
+def _screencap(seed):
+    """A screencap client's stream at a quarter of the size, its whole pool,
+    and the pool positions of each dwell's samples, found from the slide
+    sequence alone: runs of ``dwell`` slide samples, no-slide samples
+    between them counting for none."""
+    cell, deck_spec, s = _stream("orb64-screencap-x4", seed, seed % 4, (270, 480))
+    deck = pages.make_deck(deck_spec, seed, "cpu")
+    frames = s.make(list(range(s.pool)), deck)
+    slide_ks = [k for k in range(s.pool) if s.page(k) >= 0]
+    dwells = [slide_ks[i:i + cell["dwell"]] for i in range(0, len(slide_ks), cell["dwell"])]
+    return cell, s, frames, dwells
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_screencap_samples_hold_their_dwell(seed):
+    """Every sample of a dwell is byte-identical to the dwell's first, and no
+    two dwells in a row show the same pixels."""
+    _, s, frames, dwells = _screencap(seed)
+    for dwell in dwells:
+        assert all(torch.equal(frames[k], frames[dwell[0]]) for k in dwell[1:])
+    assert all(not torch.equal(frames[a[0]], frames[b[0]]) for a, b in zip(dwells, dwells[1:]))
+
+
+# A screencap pool of 384 = 4 periods of 94 slide samples: 32 dwells of 12
+# (the last one 4 samples), 4 noise and 4 blank samples, and 3 samples after
+# a blank that start no dwell (the fourth, the pool's wrap, starts one).
+SCREENCAP_PASSED = 32 + 4 + 4 + 3
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_screencap_dedup_passes_dwell_starts_and_no_slide_samples(seed):
+    """The port's dedup arithmetic (``MatchingEngine._dedup``) over the whole
+    pool and its wrap passes on the first sample of each dwell, the noise
+    and blank samples and the sample after each blank, and nothing else: as
+    many samples for every seed."""
+    from slideo_tpu_torch.ops import image as image_ops
+
+    cell, s, frames, dwells = _screencap(seed)
+    video = cell["config"]["video"]
+    small = image_ops.resize(frames, image_ops.small_size(*frames.shape[1:], video["small_image_area"]),
+                             area=True)
+    prev = torch.roll(small, 1, dims=0)                  # pool[-1] before pool[0]
+    changed = image_ops.compute_similarity(small, prev, channels=1) < video["dedup_similarity"]
+    after_blank = {(k + 1) % s.pool for k in range(s.pool) if s.page(k) == BLANK}
+    want = {d[0] for d in dwells} | {k for k in range(s.pool) if s.page(k) < 0} | after_blank
+    assert set(torch.nonzero(changed)[:, 0].tolist()) == want
+    assert len(want) == SCREENCAP_PASSED

@@ -4,10 +4,10 @@
 
 For each seed it makes the cell's deck and, for each client, a sample of
 ``check_frames`` frames drawn as a run draws them (from the window's usual
-span of frames), and answers them with the plain reference and with the
-control: the same reference one precision step lower (TF32 for the float32
-products the configuration states with TF32 off), put in the program's
-place. With ``--program`` the port's engine in this process answers the
+span of frames), and answers them with the configuration's plain reference
+(``spec.reference``) and with the control: the same reference one
+precision step lower (TF32 for the float32 products the configuration
+states with TF32 off), put in the program's place. With ``--program`` the port's engine in this process answers the
 same frames too (``MatchingEngine.match_batch``, one frame a call, its
 frame index as its seed, as the engine's batches do). It prints the
 comparison's numbers of each against the reference. The benchmark's runs
@@ -27,7 +27,6 @@ if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
 from portbench.lib import check, pages, spec  # noqa: E402
-from portbench.lib.reference import Reference  # noqa: E402
 from portbench.lib.traffic import FilmedStream  # noqa: E402
 
 FIRST, SPAN = 128, 1600    # frames a client decides in a window: from the warm batches on
@@ -70,6 +69,7 @@ def main() -> None:
     cell = spec.cell(args.workload)
     cell["traffic"].update(json.loads(args.traffic))
     conf = cell["config"]
+    Reference = spec.reference(conf)
     for seed in args.seeds:
         t0 = time.monotonic()
         deck = pages.make_deck(conf["deck"], seed, dev)
