@@ -492,13 +492,11 @@ class MatchingEngine:
         """Match a [n, H, W] batch on the engine's devices; fields come back
         [n]. On a mesh the batch is padded to a multiple of the mesh size
         with copies of the last frame under seed 0 (``pipeline.py:707-712``),
-        and their results are dropped. On one device the ORB matcher times
-        its stages on the tracer of the running ``match_samples``; the SIFT
-        matcher and the mesh are timed as a whole."""
+        and their results are dropped. On one device either matcher times
+        its stages on the tracer of the running ``match_samples``; the mesh
+        is timed as a whole."""
         if self.mesh is None:
-            if self.cfg.engine == "sift":
-                return self._match_frames(frames, frame_seeds, self.index, self.slide_hw, self.cfg)
-            return orb_matcher.match_frames(
+            return self._match_frames(
                 frames, frame_seeds, self.index, self.slide_hw, self.cfg, self._tracer
             )
         n = frames.shape[0]
@@ -586,7 +584,7 @@ class MatchingEngine:
         ``tracer`` times the stages "dedup" (with its children "dedup.stack",
         "sync.upload", "dedup.compare", itself holding "sync.first" in the
         first batch, and "sync.verdict"), "match.dispatch"
-        (with the ORB matcher's stages as children) and "match.fetch"
+        (with the matcher's stages as children) and "match.fetch"
         (``pipeline.py:671-766``); the "sync.*" stages (the matcher's
         "sync.count" and "sync.pick" among them) and "match.fetch" are the
         host's reads of device results."""

@@ -7,6 +7,14 @@ the ORB matcher's acceptance thresholds (``MatchConfig``: top-10 rating
 cascade, rating ratio, similarity) with SIFT's own rating floor
 (``SiftConfig.min_rating``), so both engines plug into one pipeline.
 
+A ``StageTracer`` (the engine's, in ``match_samples``) times each frame's
+stages: "sift.features" (the features, with each octave's "sift.detect"
+and "sift.describe" inside, and the thumbnail), "sift.table" (the float
+table, stage 1 above the screening limit), "sift.lowe" (Lowe's ratio and
+the gathers of the matches), "sift.draws", "sift.homography" (RANSAC and
+the rating cascade) and "sift.verify" (K6h's similarities and the winner,
+whose three reads by the 0-dim argmax are "sync.pick" stages).
+
 Decks above ``MatchConfig.screen_above_slides`` slides first vote each
 frame's candidate slides with the bf16 stage-1 sweep
 (``hamming.screen_slides_float``); the exact f32 table then covers those
@@ -26,6 +34,7 @@ import torch
 from ..config import SlideoConfig
 from ..ops import hamming, homography, image, ransac, select, top_k, verify
 from ..ops.sift import SiftFeatures, extract_sift
+from ..utils.trace import DISABLED, StageTracer
 from .orb_matcher import FrameMatch
 
 __all__ = [
@@ -109,14 +118,17 @@ def sift_index_from_numpy(
     )
 
 
-def frame_features(frame: torch.Tensor, cfg: SlideoConfig) -> tuple[SiftFeatures, torch.Tensor]:
+def frame_features(
+    frame: torch.Tensor, cfg: SlideoConfig, tracer: StageTracer = DISABLED
+) -> tuple[SiftFeatures, torch.Tensor]:
     """A [H, W] frame's SIFT features and its verification thumbnail. The
     frame's thumbnail keeps the default area whatever
     ``cfg.video.small_image_area`` is (only the slides' thumbnails take it),
     as the JAX package's ``warp_similarity_homography`` makes it
     (``verify.py:162,175-176``)."""
-    frame = frame.to(torch.float32)
-    return extract_sift(frame, cfg.sift), image.to_small_image(frame)
+    with tracer.stage("sift.features"):
+        frame = frame.to(torch.float32)
+        return extract_sift(frame, cfg.sift, tracer), image.to_small_image(frame)
 
 
 def sift_table(feats: SiftFeatures, index: SiftSlideIndex, cfg: SlideoConfig) -> hamming.MatchTable:
@@ -142,6 +154,7 @@ def rate_candidates(
     index: SiftSlideIndex,
     u: torch.Tensor,
     cfg: SlideoConfig,
+    tracer: StageTracer = DISABLED,
 ) -> RatedCandidates:
     """Lowe per slide -> RANSAC homography with a scale-aware tolerance ->
     the top-10 rating cascade (``sift_matcher.py:150-178``).
@@ -150,21 +163,23 @@ def rate_candidates(
     table columns); ``ransac.uniform_draws`` with 4 points in the engine).
     """
     mcfg = cfg.match
-    cs = select.select_candidates_lowe(table, feats.valid, mcfg, cfg.sift.lowe_ratio)
-    slides, train, query = cs.slide_ids.long(), cs.train_ids.long(), cs.query_ids.long()
-    src = torch.gather(index.pts[slides], 1, train[..., None].expand(-1, -1, 2))
-    dst = feats.pts[query]
-    valid = cs.match_valid & cs.cand_valid[:, None]
-    # Localisation error grows with the detection octave on both sides.
-    tol = torch.maximum(torch.gather(index.scale[slides], 1, train), feats.scale[query])
-    rr = homography.ransac_homography(src, dst, valid, u, mcfg, tol=tol)
+    with tracer.stage("sift.lowe"):
+        cs = select.select_candidates_lowe(table, feats.valid, mcfg, cfg.sift.lowe_ratio)
+        slides, train, query = cs.slide_ids.long(), cs.train_ids.long(), cs.query_ids.long()
+        src = torch.gather(index.pts[slides], 1, train[..., None].expand(-1, -1, 2))
+        dst = feats.pts[query]
+        valid = cs.match_valid & cs.cand_valid[:, None]
+        # Localisation error grows with the detection octave on both sides.
+        tol = torch.maximum(torch.gather(index.scale[slides], 1, train), feats.scale[query])
+    with tracer.stage("sift.homography"):
+        rr = homography.ransac_homography(src, dst, valid, u, mcfg, tol=tol)
 
-    top_rating, top_idx = top_k(rr.rating, min(mcfg.top_rated, rr.rating.shape[0]))
-    best_rating = top_rating[0]
-    retain = (top_rating > cfg.sift.min_rating) & (
-        top_rating / torch.clamp(best_rating, min=1e-9) > mcfg.min_rating_ratio
-    )
-    retain &= (rr.ok & cs.cand_valid)[top_idx]
+        top_rating, top_idx = top_k(rr.rating, min(mcfg.top_rated, rr.rating.shape[0]))
+        best_rating = top_rating[0]
+        retain = (top_rating > cfg.sift.min_rating) & (
+            top_rating / torch.clamp(best_rating, min=1e-9) > mcfg.min_rating_ratio
+        )
+        retain &= (rr.ok & cs.cand_valid)[top_idx]
     return RatedCandidates(
         h=rr.transform.h[top_idx], slides=cs.slide_ids[top_idx], rating=top_rating, retain=retain
     )
@@ -177,23 +192,31 @@ def verify_winner(
     index: SiftSlideIndex,
     slide_hw: tuple[int, int],
     cfg: SlideoConfig,
+    tracer: StageTracer = DISABLED,
 ) -> FrameMatch:
     """Projective warp similarity of the rated candidates (K6h on CUDA) and
     the winner: the largest similarity, which must exceed min_similarity."""
     mcfg = cfg.match
-    sims = verify.warp_similarity_homography(
-        frame_small, frame_hw, rated.h, index.smalls, rated.slides, slide_hw,
-        stride=mcfg.verify_stride,
-    )
-    sims = torch.where(rated.retain, sims, -torch.inf)
-    win = torch.argmax(sims)
-    win_sim = sims[win]
-    accept = win_sim > mcfg.min_similarity
-    return FrameMatch(
-        slide=torch.where(accept, rated.slides[win], -1).to(torch.int32),
-        similarity=win_sim,
-        rating=rated.rating[win],
-    )
+    with tracer.stage("sift.verify"):
+        sims = verify.warp_similarity_homography(
+            frame_small, frame_hw, rated.h, index.smalls, rated.slides, slide_hw,
+            stride=mcfg.verify_stride,
+        )
+        sims = torch.where(rated.retain, sims, -torch.inf)
+        # Each index by the 0-dim ``win`` reads it on the host.
+        win = torch.argmax(sims)
+        with tracer.stage("sync.pick"):
+            win_sim = sims[win]
+        accept = win_sim > mcfg.min_similarity
+        with tracer.stage("sync.pick"):
+            win_slide = rated.slides[win]
+        with tracer.stage("sync.pick"):
+            win_rating = rated.rating[win]
+        return FrameMatch(
+            slide=torch.where(accept, win_slide, -1).to(torch.int32),
+            similarity=win_sim,
+            rating=win_rating,
+        )
 
 
 def match_frame_sift(
@@ -203,17 +226,21 @@ def match_frame_sift(
     slide_hw: tuple[int, int],
     cfg: SlideoConfig,
     u: torch.Tensor | None = None,
+    tracer: StageTracer = DISABLED,
 ) -> FrameMatch:
     """Match one [H, W] grayscale frame against the deck. ``frame_seed``
     (the frame index) seeds the frame's RANSAC draws, unless ``u``
-    [C, ransac_iters, 4] hands them in (the tests hand in JAX's)."""
-    feats, frame_small = frame_features(frame, cfg)
-    table = sift_table(feats, index, cfg)
+    [C, ransac_iters, 4] hands them in (the tests hand in JAX's);
+    ``tracer`` times the stages (see the module's docstring)."""
+    feats, frame_small = frame_features(frame, cfg, tracer)
+    with tracer.stage("sift.table"):
+        table = sift_table(feats, index, cfg)
     if u is None:
-        n_cand = min(cfg.match.top_slides, table.dist.shape[1])
-        u = ransac.uniform_draws(n_cand, cfg.match, frame_seed, feats.desc.device, n_points=4)
-    rated = rate_candidates(feats, table, index, u, cfg)
-    return verify_winner(frame_small, tuple(frame.shape), rated, index, slide_hw, cfg)
+        with tracer.stage("sift.draws"):
+            n_cand = min(cfg.match.top_slides, table.dist.shape[1])
+            u = ransac.uniform_draws(n_cand, cfg.match, frame_seed, feats.desc.device, n_points=4)
+    rated = rate_candidates(feats, table, index, u, cfg, tracer)
+    return verify_winner(frame_small, tuple(frame.shape), rated, index, slide_hw, cfg, tracer)
 
 
 def match_frames_sift(
@@ -222,9 +249,11 @@ def match_frames_sift(
     index: SiftSlideIndex,
     slide_hw: tuple[int, int],
     cfg: SlideoConfig,
+    tracer: StageTracer = DISABLED,
 ) -> FrameMatch:
     """Match a [B, H, W] batch frame by frame; fields come back [B]."""
     results = [
-        match_frame_sift(f, int(s), index, slide_hw, cfg) for f, s in zip(frames, frame_seeds)
+        match_frame_sift(f, int(s), index, slide_hw, cfg, tracer=tracer)
+        for f, s in zip(frames, frame_seeds)
     ]
     return FrameMatch(*(torch.stack(field) for field in zip(*results)))

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..config import SiftConfig
+from ..utils.trace import DISABLED, StageTracer
 from . import image as image_ops
 from . import top_k
 from .orb import HALF_PATCH, PATCH, extract_patches, sample_patches
@@ -179,58 +180,63 @@ def _empty(kq: int, device: torch.device) -> SiftFeatures:
     )
 
 
-def _octave(base: torch.Tensor, kq: int, scale: float, cfg: SiftConfig) -> SiftFeatures:
+def _octave(base: torch.Tensor, kq: int, scale: float, cfg: SiftConfig, tracer: StageTracer) -> SiftFeatures:
     """The ``kq`` keypoints of one octave image ``base`` (its pixels are
-    ``scale`` full-image pixels)."""
-    oh, ow = base.shape
-    # 4 blur levels -> 3 DoGs -> the union of their spatial extrema.
-    sigmas = [cfg.sigma0 * (2 ** (s / 3)) for s in range(4)]
-    blurs = [image_ops.gaussian_blur(base, cfg.blur_ksize, s) for s in sigmas]
-    dogs = [blurs[i + 1] - blurs[i] for i in range(3)]
-    resp = None
-    for dlvl in dogs:
-        m, r = _dog_extrema(dlvl, cfg.contrast_threshold, cfg.edge_ratio)
-        r = torch.where(m, r, 0.0)
-        resp = r if resp is None else torch.maximum(resp, r)
-    mask = resp > 0
-    # 2D subpixel offsets from a quadratic fit of the middle DoG: -H^-1 g.
-    dmid = dogs[1]
-    gx_d = 0.5 * (_roll(dmid, 0, -1) - _roll(dmid, 0, 1))
-    gy_d = 0.5 * (_roll(dmid, -1, 0) - _roll(dmid, 1, 0))
-    dxx, dyy, dxy = _hessian(dmid)
-    det = dxx * dyy - dxy * dxy
-    det = torch.where(torch.abs(det) > 1e-9, det, 1e-9)
-    off_x = torch.clamp(-(dyy * gx_d - dxy * gy_d) / det, -0.6, 0.6)
-    off_y = torch.clamp(-(dxx * gy_d - dxy * gx_d) / det, -0.6, 0.6)
-    ys_i = torch.arange(oh, device=base.device)[:, None]
-    xs_i = torch.arange(ow, device=base.device)[None, :]
-    inb = (
-        (ys_i >= cfg.border) & (ys_i < oh - cfg.border)
-        & (xs_i >= cfg.border) & (xs_i < ow - cfg.border)
-    )
-    score_map = torch.where(mask & inb, resp, 0.0)
-    top, idx = top_k(score_map.reshape(-1), kq)
-    yy = idx // ow
-    xx = idx % ow
-    valid = top > 0.0
+    ``scale`` full-image pixels). ``tracer`` times "sift.detect" (the blurs,
+    DoG, extrema, offsets and top-k) and "sift.describe" (patches,
+    orientation, descriptors)."""
+    with tracer.stage("sift.detect"):
+        oh, ow = base.shape
+        # 4 blur levels -> 3 DoGs -> the union of their spatial extrema.
+        sigmas = [cfg.sigma0 * (2 ** (s / 3)) for s in range(4)]
+        blurs = [image_ops.gaussian_blur(base, cfg.blur_ksize, s) for s in sigmas]
+        dogs = [blurs[i + 1] - blurs[i] for i in range(3)]
+        resp = None
+        for dlvl in dogs:
+            m, r = _dog_extrema(dlvl, cfg.contrast_threshold, cfg.edge_ratio)
+            r = torch.where(m, r, 0.0)
+            resp = r if resp is None else torch.maximum(resp, r)
+        mask = resp > 0
+        # 2D subpixel offsets from a quadratic fit of the middle DoG: -H^-1 g.
+        dmid = dogs[1]
+        gx_d = 0.5 * (_roll(dmid, 0, -1) - _roll(dmid, 0, 1))
+        gy_d = 0.5 * (_roll(dmid, -1, 0) - _roll(dmid, 1, 0))
+        dxx, dyy, dxy = _hessian(dmid)
+        det = dxx * dyy - dxy * dxy
+        det = torch.where(torch.abs(det) > 1e-9, det, 1e-9)
+        off_x = torch.clamp(-(dyy * gx_d - dxy * gy_d) / det, -0.6, 0.6)
+        off_y = torch.clamp(-(dxx * gy_d - dxy * gx_d) / det, -0.6, 0.6)
+        ys_i = torch.arange(oh, device=base.device)[:, None]
+        xs_i = torch.arange(ow, device=base.device)[None, :]
+        inb = (
+            (ys_i >= cfg.border) & (ys_i < oh - cfg.border)
+            & (xs_i >= cfg.border) & (xs_i < ow - cfg.border)
+        )
+        score_map = torch.where(mask & inb, resp, 0.0)
+        top, idx = top_k(score_map.reshape(-1), kq)
+        yy = idx // ow
+        xx = idx % ow
+        valid = top > 0.0
+    with tracer.stage("sift.describe"):
+        patches = extract_patches(blurs[1], yy, xx)
+        cos, sin = _orientations_hist(patches)
+        desc = _descriptors_from_patches(patches, cos, sin, cfg.descriptor_radius)
+        desc = torch.where(valid[:, None], desc, 0.0)
+        ox = off_x.reshape(-1)[idx]
+        oy = off_y.reshape(-1)[idx]
+        pts = torch.stack([xx.to(torch.float32) + ox, yy.to(torch.float32) + oy], -1) * scale
+        return SiftFeatures(
+            pts=pts, desc=desc, score=top,
+            scale=torch.full((kq,), scale, dtype=torch.float32, device=base.device), valid=valid,
+        )
 
-    patches = extract_patches(blurs[1], yy, xx)
-    cos, sin = _orientations_hist(patches)
-    desc = _descriptors_from_patches(patches, cos, sin, cfg.descriptor_radius)
-    desc = torch.where(valid[:, None], desc, 0.0)
-    ox = off_x.reshape(-1)[idx]
-    oy = off_y.reshape(-1)[idx]
-    pts = torch.stack([xx.to(torch.float32) + ox, yy.to(torch.float32) + oy], -1) * scale
-    return SiftFeatures(
-        pts=pts, desc=desc, score=top,
-        scale=torch.full((kq,), scale, dtype=torch.float32, device=base.device), valid=valid,
-    )
 
-
-def extract_sift(img: torch.Tensor, cfg: SiftConfig) -> SiftFeatures:
+def extract_sift(img: torch.Tensor, cfg: SiftConfig, tracer: StageTracer = DISABLED) -> SiftFeatures:
     """SIFT-family features of a [H, W] float32 grayscale image: each
     octave's quota of keypoints, octave 0 first; an octave too small for
-    the border and the patch gives invalid slots."""
+    the border and the patch gives invalid slots. ``tracer`` times each
+    octave's stages (``_octave``); the halving between octaves is in
+    neither."""
     per_octave = []
     base = img.to(torch.float32)
     scale = 1.0
@@ -240,7 +246,7 @@ def extract_sift(img: torch.Tensor, cfg: SiftConfig) -> SiftFeatures:
         if oh < min_dim or ow < min_dim:
             per_octave.append(_empty(kq, img.device))
             continue
-        per_octave.append(_octave(base, kq, scale, cfg))
+        per_octave.append(_octave(base, kq, scale, cfg, tracer))
         base = image_ops.resize(base, (max(oh // 2, 1), max(ow // 2, 1)))
         scale *= 2.0
     return SiftFeatures(*(torch.cat(field) for field in zip(*per_octave)))
